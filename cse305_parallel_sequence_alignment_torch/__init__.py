@@ -1,0 +1,46 @@
+"""PyTorch + CUDA port of the pairwise alignment framework.
+
+A second package beside ``cse305_parallel_sequence_alignment_tpu`` (the
+JAX reference, which it never imports). The ported slice is global
+Gotoh alignment of many pairs on an NVIDIA H100:
+
+- ``core``      scoring parameters, boundary semantics, codec, results
+- ``ops``       CUDA kernels (``csrc/``) with their plain PyTorch
+                versions: K1 dirs16+runs fill, K3 score fill, K2
+                run-length walk
+- ``models``    ``BatchAligner`` (global mode) and ``GotohAligner``
+- ``native``    host replay and render (built from the reference
+                package's ``native/tsalib.cpp``)
+- ``utils``     run configuration, FASTA input
+- ``api``       ``align``, ``align_pairs``, ``score_pairs``
+
+Nothing heavy is imported until used: ``torch`` loads with ``models``
+or ``ops``, and the CUDA kernels are compiled at their first launch.
+"""
+
+from cse305_parallel_sequence_alignment_torch.core import (
+    NEG_INF,
+    AlignmentResult,
+    ScoringParams,
+    decode_seq,
+    encode_seq,
+)
+from cse305_parallel_sequence_alignment_torch.api import (
+    align,
+    align_pairs,
+    score_pairs,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "NEG_INF",
+    "AlignmentResult",
+    "ScoringParams",
+    "encode_seq",
+    "decode_seq",
+    "align",
+    "align_pairs",
+    "score_pairs",
+    "__version__",
+]

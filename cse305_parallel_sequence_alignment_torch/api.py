@@ -1,0 +1,52 @@
+"""Convenience API, global mode (the slice of the JAX package's ``api``
+that is ported so far):
+
+    align(a, b)             # one global alignment, reference semantics
+    align_pairs(pairs)      # batched full alignments
+    score_pairs(pairs)      # batched scores: (scores, end_tables)
+
+Every call takes ``device`` ("cuda" by default) and the ``BatchAligner``
+keyword arguments. The other modes raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+
+_MODES = ("global", "local", "semiglobal", "overlap", "banded",
+          "partitioned")
+_LATER = {
+    "local": "queue 1 item 10 (kernel K9)",
+    "semiglobal": "queue 1 item 11 (kernel K10)",
+    "overlap": "queue 1 item 11 (kernel K11)",
+    "banded": "queue 1 item 12 (kernel K12)",
+    "partitioned": "queue 1 item 9 (kernels K6, K7)",
+}
+
+
+def _aligner(mode, params, **kw):
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode!r}; pick from {_MODES}")
+    if mode != "global":
+        raise NotImplementedError(
+            f"mode {mode!r} is not ported yet: ROADMAP {_LATER[mode]}")
+    from cse305_parallel_sequence_alignment_torch.models.batch import (
+        BatchAligner,
+    )
+    return BatchAligner(params=params or ScoringParams(), **kw)
+
+
+def align(a, b, mode="global", params=None, **kw):
+    """One pairwise alignment; returns an ``AlignmentResult``."""
+    return _aligner(mode, params, **kw).align_batch([(a, b)])[0]
+
+
+def align_pairs(pairs, mode="global", params=None, **kw):
+    """Batched full alignments."""
+    return _aligner(mode, params, **kw).align_batch(pairs)
+
+
+def score_pairs(pairs, mode="global", params=None, **kw):
+    """Batched scores: (scores, end_tables)."""
+    return _aligner(mode, params, **kw).score_batch(pairs)

@@ -1,0 +1,297 @@
+// Gotoh row-sweep fills for the H100 (sm_90a), plain C interface.
+//
+// K1 rowcb_fill replaces the TPU kernel _rowcb_kernel
+// (cse305_parallel_sequence_alignment_tpu/ops/pallas_rowcb.py:126) with
+// want_dirs=True, with_runs=True, k1=0: it emits the uint16 "dirs16+runs"
+// cell of every (i, j) and the finals (T1, T2, T3) at (la, lb).
+// K3 score_fill replaces _score_kernel (ops/pallas_fill.py:216): the same
+// sweep without dirs or run state, finals only. Both are one template.
+//
+// Design. One CTA per pair; the row loop runs inside the block (it takes
+// the place of the TPU's sequential row-block grid axis). Each thread owns
+// a contiguous chunk of C columns. T2's prefix max over the row is a
+// block-wide inclusive scan: each thread's running max over its chunk,
+// a warp shuffle scan, then the warp totals through shared memory.
+// The previous and the current DP row (T1/T2/T3, and for K1 the previous
+// row's packed cell, which carries its run length and after-run code)
+// are double-buffered by row parity, in shared memory, or in global
+// scratch that the wrapper allocates when the row is too wide. A thread
+// reads its left neighbour's previous-row cell (column c0-1) from the
+// other buffer, so no row is updated in place across a j-1 read.
+//
+// Bounds. Per cell ~40 float/int operations and, for K1, one 2-byte store
+// to device memory: 256 pairs x 2 kb is ~1.1 G cells and ~2.1 GB of dirs,
+// well under a millisecond of HBM bandwidth, so the fill is bound by the
+// serial chain of each row (two passes over a thread's chunk) and two
+// block barriers per row, not by memory. More pairs per SM hide the
+// latency; the chunk width C trades barrier count against chain length.
+//
+// Numerics. float32 with true -inf and the JAX kernel's operation order
+// (built with -fmad=false so no multiply-add is contracted):
+//   T1 = fb + max3(prev row, j-1)
+//   T3 = max((max(T1,T2)(prev, j) - g) - h, T3(prev, j) - g)
+//   omega = ((g*j + max(T1,T3)(j-1)) - g) - h,  T2 = prefixmax(omega) - g*j
+// Direction codes use the tie order T1 >= T2 >= T3 (quirk B3).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr int kMaxThreads = 1024;
+constexpr int kRunCap = 255;
+
+__device__ __forceinline__ int argmax3(float c1, float c2, float c3) {
+    return (c1 >= c2 && c1 >= c3) ? 0 : (c2 >= c3 ? 1 : 2);
+}
+
+__device__ __forceinline__ float warp_incl_max(float v) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+        float o = __shfl_up_sync(0xffffffffu, v, s);
+        if (lane >= s) v = fmaxf(v, o);
+    }
+    return v;
+}
+
+// Row buffers of one pair: T[buf][table][col], and for K1 the packed cell
+// of the previous row P[buf][col].
+struct Rows {
+    float* t;
+    uint16_t* p;
+    int ncol;
+    __device__ float* T(int buf, int k) const {
+        return t + ((size_t)buf * 3 + k) * ncol;
+    }
+    __device__ uint16_t* P(int buf) const { return p + (size_t)buf * ncol; }
+};
+
+template <bool DIRS>
+__global__ void __launch_bounds__(kMaxThreads)
+sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
+             const int32_t* __restrict__ la, const int32_t* __restrict__ lb,
+             const int32_t* __restrict__ st, uint16_t* __restrict__ dirs,
+             float* __restrict__ fin, char* __restrict__ scratch,
+             int B, int m, int n, int C, float g, float h, float match,
+             float mismatch) {
+    extern __shared__ __align__(16) char smem[];
+    const int pair = blockIdx.x;
+    const int ncol = n + 1;
+    const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    const float NEG = -CUDART_INF_F;
+
+    // shared layout: warp totals (32 f32) | b_ext (ncol u8, 16-aligned) |
+    // row buffers when they fit (else in global scratch, per pair)
+    float* wsum = reinterpret_cast<float*>(smem);
+    uint8_t* bext = reinterpret_cast<uint8_t*>(smem + 128);
+    const size_t bext_bytes = ((size_t)ncol + 15) & ~(size_t)15;
+    const size_t row_bytes = (size_t)ncol * (DIRS ? 28 : 24);
+    char* rowmem = scratch ? scratch + (size_t)pair * ((row_bytes + 15) & ~(size_t)15)
+                           : smem + 128 + bext_bytes;
+    Rows R{reinterpret_cast<float*>(rowmem),
+           reinterpret_cast<uint16_t*>(rowmem + (size_t)ncol * 24), ncol};
+
+    const int sta = st[pair], lA = la[pair], lB = lb[pair];
+    const uint8_t* arow = a + (size_t)pair * m;
+    const uint8_t* brow = b + (size_t)pair * n;
+    for (int j = tid; j < ncol; j += blockDim.x)
+        bext[j] = j == 0 ? (uint8_t)255 : brow[j - 1];
+
+    const int c0 = tid * C;
+    const int c1 = min(c0 + C, ncol);
+    const size_t row_stride = (size_t)B * ncol;  // dirs (m+1, B, ncol)
+    uint16_t* drow = DIRS ? dirs + (size_t)pair * ncol : nullptr;
+
+    // row 0 (reference boundary, quirks kept: +2 acts as -1 on row 0)
+    for (int j = c0; j < c1; ++j) {
+        const float jg = g * (float)j;
+        float r1 = NEG, r2, r3 = NEG;
+        if (j == 0) {
+            r1 = (sta == 1 || sta == -1) ? 0.0f : NEG;
+            r2 = (sta == -2) ? 0.0f : NEG;
+            r3 = (sta == -3) ? 0.0f : NEG;
+        } else {
+            r2 = (sta == -2) ? -jg : ((sta == 1 || sta == 3) ? NEG : -h - jg);
+        }
+        R.T(0, 0)[j] = r1;
+        R.T(0, 1)[j] = r2;
+        R.T(0, 2)[j] = r3;
+        if (DIRS) {
+            R.P(0)[j] = 0;
+            drow[j] = 0;
+        }
+        if (lA == 0 && j == lB) {
+            fin[pair * 3 + 0] = r1;
+            fin[pair * 3 + 1] = r2;
+            fin[pair * 3 + 2] = r3;
+        }
+    }
+    __syncthreads();
+
+    for (int i = 1; i <= m; ++i) {
+        const int cur = i & 1, prv = cur ^ 1;
+        const float* P1 = R.T(prv, 0);
+        const float* P2 = R.T(prv, 1);
+        const float* P3 = R.T(prv, 2);
+        float* Q1 = R.T(cur, 0);
+        float* Q2 = R.T(cur, 1);
+        float* Q3 = R.T(cur, 2);
+        const int ac = arow[i - 1];
+        const float fi = (float)i;
+        // column 0 of T3 (quirk: +3 acts as -1 on column 0)
+        const float col0_3 = (sta == -3) ? -g * fi
+                           : ((sta == 1 || sta == 2) ? NEG : -h - g * fi);
+
+        // pass 1: T1, T3 and the chunk-local prefix max of omega
+        float run_max = NEG;
+        if (c0 < c1) {
+            float lm3 = NEG;   // max3 of the previous row at j-1
+            float m13l = NEG;  // max(T1, T3) of this row at j-1
+            if (c0 > 0) {
+                const int jl = c0 - 1;
+                const float q12 = fmaxf(P1[jl], P2[jl]);
+                const float q3v = P3[jl];
+                float t1l = NEG, t3l = col0_3;
+                if (jl > 0) {
+                    const float mp3ll = fmaxf(fmaxf(P1[jl - 1], P2[jl - 1]),
+                                              P3[jl - 1]);
+                    const float fbl = bext[jl] == ac ? match : mismatch;
+                    t1l = fbl + mp3ll;
+                    t3l = fmaxf((q12 - g) - h, q3v - g);
+                }
+                lm3 = fmaxf(q12, q3v);
+                m13l = fmaxf(t1l, t3l);
+            }
+            for (int j = c0; j < c1; ++j) {
+                const float p1 = P1[j], p2 = P2[j], p3 = P3[j];
+                const float mp12 = fmaxf(p1, p2);
+                const float mp3 = fmaxf(mp12, p3);
+                float t1 = NEG, t3 = col0_3, omega = NEG;
+                if (j > 0) {
+                    const float fb = bext[j] == ac ? match : mismatch;
+                    t1 = fb + lm3;
+                    t3 = fmaxf((mp12 - g) - h, p3 - g);
+                    omega = ((g * (float)j + m13l) - g) - h;
+                }
+                run_max = fmaxf(run_max, omega);
+                Q1[j] = t1;
+                Q3[j] = t3;
+                Q2[j] = run_max;  // chunk-local prefix; fixed in pass 2
+                lm3 = mp3;
+                m13l = fmaxf(t1, t3);
+            }
+        }
+
+        // block scan: exclusive prefix max of the chunk maxima
+        const float incl = warp_incl_max(run_max);
+        if (lane == 31) wsum[warp] = incl;
+        __syncthreads();
+        float wpre = (lane < warp) ? wsum[lane] : NEG;
+#pragma unroll
+        for (int s = 16; s > 0; s >>= 1)
+            wpre = fmaxf(wpre, __shfl_xor_sync(0xffffffffu, wpre, s));
+        float inwarp = __shfl_up_sync(0xffffffffu, incl, 1);
+        if (lane == 0) inwarp = NEG;
+        const float excl = fmaxf(wpre, inwarp);
+
+        // pass 2: T2, directions, run lengths, finals
+        if (c0 < c1) {
+            int am3l = 0, d2l = 0, pwl = 0;  // column 0 sees zeros
+            if (c0 > 0) {
+                const int jl = c0 - 1;
+                am3l = argmax3(P1[jl], P2[jl], P3[jl]);
+                if (DIRS) {
+                    pwl = R.P(prv)[jl];
+                    const float t2l = jl == 0 ? NEG : excl - g * (float)jl;
+                    d2l = argmax3(Q1[jl] - h, t2l, Q3[jl] - h);
+                }
+            }
+            uint16_t* PW = DIRS ? R.P(prv) : nullptr;
+            uint16_t* QW = DIRS ? R.P(cur) : nullptr;
+            uint16_t* dout = DIRS ? drow + (size_t)i * row_stride : nullptr;
+            for (int j = c0; j < c1; ++j) {
+                const float pm = fmaxf(Q2[j], excl);
+                const float t2 = j == 0 ? NEG : pm - g * (float)j;
+                Q2[j] = t2;
+                if (DIRS) {
+                    const float p1 = P1[j], p2 = P2[j], p3 = P3[j];
+                    const float t1 = Q1[j], t3 = Q3[j];
+                    const int d1 = am3l;
+                    const int d2 = d2l;
+                    const int d3 = argmax3(p1, p2, p3 + h);
+                    const int r_prev = pwl >> 8;
+                    const int ca_prev = (pwl >> 6) & 3;
+                    int r_cur = 0, ca_cur = d1;
+                    if (d1 == 0) {
+                        r_cur = min(r_prev + 1, kRunCap);
+                        ca_cur = r_prev >= kRunCap ? 0 : ca_prev;
+                    }
+                    const uint16_t word = (uint16_t)(
+                        d1 | (d2 << 2) | (d3 << 4) | (ca_cur << 6) |
+                        (r_cur << 8));
+                    QW[j] = word;
+                    dout[j] = word;
+                    am3l = argmax3(p1, p2, p3);
+                    d2l = argmax3(t1 - h, t2, t3 - h);
+                    pwl = PW[j];
+                }
+                if (i == lA && j == lB) {
+                    fin[pair * 3 + 0] = Q1[j];
+                    fin[pair * 3 + 1] = t2;
+                    fin[pair * 3 + 2] = Q3[j];
+                }
+            }
+        }
+        __syncthreads();
+    }
+}
+
+template <bool DIRS>
+int launch(const uint8_t* a, const uint8_t* b, const int32_t* la,
+           const int32_t* lb, const int32_t* st, uint16_t* dirs, float* fin,
+           char* scratch, int B, int m, int n, int C, int threads,
+           size_t smem, float g, float h, float match, float mismatch,
+           cudaStream_t stream) {
+    if (B == 0) return 0;
+    auto kern = sweep_kernel<DIRS>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<B, threads, smem, stream>>>(a, b, la, lb, st, dirs, fin, scratch,
+                                       B, m, n, C, g, h, match, mismatch);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dirs: (m+1, B, n+1) uint16; fin: (B, 3) f32; a: (B, m) u8; b: (B, n) u8;
+// la/lb/st: (B,) i32; C columns per thread, threads a multiple of 32 with
+// threads * C >= n + 1; scratch: null (rows in shared memory) or B row
+// buffers of (n+1) * 28 bytes (24 for score_fill), each rounded up to 16.
+// Returns a cudaError_t code.
+int rowcb_fill(const uint8_t* a, const uint8_t* b, const int32_t* la,
+               const int32_t* lb, const int32_t* st, uint16_t* dirs,
+               float* fin, char* scratch, int B, int m, int n, int C,
+               int threads, long long smem, float g, float h, float match,
+               float mismatch, void* stream) {
+    return launch<true>(a, b, la, lb, st, dirs, fin, scratch, B, m, n, C,
+                        threads, (size_t)smem, g, h, match, mismatch,
+                        (cudaStream_t)stream);
+}
+
+int score_fill(const uint8_t* a, const uint8_t* b, const int32_t* la,
+               const int32_t* lb, const int32_t* st, float* fin,
+               char* scratch, int B, int m, int n, int C, int threads,
+               long long smem, float g, float h, float match,
+               float mismatch, void* stream) {
+    return launch<false>(a, b, la, lb, st, nullptr, fin, scratch, B, m, n,
+                         C, threads, (size_t)smem, g, h, match, mismatch,
+                         (cudaStream_t)stream);
+}
+
+}  // extern "C"

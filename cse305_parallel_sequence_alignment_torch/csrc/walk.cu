@@ -1,0 +1,82 @@
+// Run-length traceback walk for the H100 (sm_90a), plain C interface.
+//
+// K2 rle_walk replaces _walk_core_rle with layout "row"
+// (cse305_parallel_sequence_alignment_tpu/ops/device_walk.py:124), which
+// is XLA on the TPU, and the experimental Pallas walk _walk_group_kernel
+// (ops/pallas_walk.py:41) that emits the same stream.
+//
+// Per pair, from (la, lb, end table t): each round does one dependent read
+// of the dirs16 cell at (i, j), clamped into the array. In T1 it takes the
+// cell's whole diagonal run (R cells of code 0, then the after-run code):
+// R+1 diagonal moves. In T2/T3 it takes one step by the cell's code for
+// that table. It writes entries[round, pair] = (op+1) | R << 2 and stops
+// once i <= 0 or j <= 0; positions may overshoot the DP edge and the host
+// replay cuts there. rounds_used is the exact maximum of the per-pair
+// round counts (atomicMax), not rounded up as the TPU walk's unroll is.
+//
+// Design and bounds. One thread per pair: the walk is a chain of
+// dependent loads (~a few hundred ns each from HBM, the cells of a pair's
+// path are scattered over ~8 MB at 2 kb), so it is latency-bound and the
+// pairs' chains run side by side; entries of one round are contiguous
+// across pairs, so each round's stores coalesce.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+__global__ void rle_walk_kernel(const uint16_t* __restrict__ dirs,
+                                const int32_t* __restrict__ la,
+                                const int32_t* __restrict__ lb,
+                                const int32_t* __restrict__ t0,
+                                uint16_t* __restrict__ entries,
+                                int32_t* __restrict__ used, int B, int nrows,
+                                int ncols, int max_rounds) {
+    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+    if (b >= B) return;
+    int i = la[b], j = lb[b], t = t0[b];
+    int r = 0;
+    bool done = (i == 0) || (j == 0);
+    while (!done && r < max_rounds) {
+        const int ri = min(max(i, 0), nrows - 1);
+        const int cj = min(max(j, 0), ncols - 1);
+        const int word = dirs[((size_t)ri * B + b) * ncols + cj];
+        int k = 0, op, di, dj;
+        if (t == 1) {
+            k = (word >> 8) & 255;
+            op = (word >> 6) & 3;
+            di = dj = k + 1;
+        } else {
+            op = (word >> (t == 2 ? 2 : 4)) & 3;
+            di = t == 3 ? 1 : 0;
+            dj = t == 2 ? 1 : 0;
+        }
+        entries[(size_t)r * B + b] = (uint16_t)((op + 1) | (k << 2));
+        t = op + 1;
+        i -= di;
+        j -= dj;
+        ++r;
+        done = (i <= 0) || (j <= 0);
+    }
+    atomicMax(used, r);
+}
+
+}  // namespace
+
+extern "C" {
+
+// dirs: (nrows, B, ncols) uint16; la/lb/t0: (B,) i32; entries:
+// (max_rounds, B) uint16, zeroed by the caller; used: one i32, zeroed by
+// the caller. Returns a cudaError_t code.
+int rle_walk(const uint16_t* dirs, const int32_t* la, const int32_t* lb,
+             const int32_t* t0, uint16_t* entries, int32_t* used, int B,
+             int nrows, int ncols, int max_rounds, void* stream) {
+    if (B == 0) return 0;
+    const int threads = 128;
+    const int blocks = (B + threads - 1) / threads;
+    rle_walk_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        dirs, la, lb, t0, entries, used, B, nrows, ncols, max_rounds);
+    return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,310 @@
+"""Bucketed many-pairs aligner: the throughput mode (reference P6).
+
+Pairs are length-bucketed, padded and filled together on the device, one
+CTA per pair. ``align_batch`` runs, per chunk of a bucket: the K1 fill
+emitting dirs16+runs (ops/rowcb.py), the end-table choice, the K2
+run-length walk (ops/device_walk.py), and a copy of only the used walk
+rounds to pinned host memory; the host then replays and renders with the
+native library. Two chunks are in flight: the device fills and walks
+chunk c+1 while the host replays chunk c. ``score_batch`` runs the K3
+score fill only.
+
+The aligner's ``device`` is explicit ("cuda" by default, or "cpu" for
+the plain PyTorch versions of the kernels); it is never switched.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from cse305_parallel_sequence_alignment_torch.core import (
+    PAD_A,
+    PAD_B,
+    AlignmentResult,
+    LazyChain,
+    ScoringParams,
+    encode_seq,
+)
+from cse305_parallel_sequence_alignment_torch.native import walker
+from cse305_parallel_sequence_alignment_torch.ops.device_walk import rle_walk
+from cse305_parallel_sequence_alignment_torch.ops.rowcb import (
+    rowcb_fill,
+    score_fill,
+)
+
+
+def _round_up(x, q):
+    return max(q, -(-x // q) * q)
+
+
+def _encode_many(seqs):
+    return [encode_seq(s) if isinstance(s, (str, bytes)) else
+            np.asarray(s, np.uint8) for s in seqs]
+
+
+def _end_choice(fin, en, h):
+    """End-table choice from the finals (B, 3) with per-pair end types
+    ``en``: forced for en > 0, else argmax with tie order T1 >= T2 >= T3
+    and the gap-open refund h for end types -2/-3. Returns (tables int32,
+    scores), on the finals' device."""
+    f1 = fin[:, 0]
+    f2 = fin[:, 1] + torch.where(en == -2, h, 0.0)
+    f3 = fin[:, 2] + torch.where(en == -3, h, 0.0)
+    pick1 = (f1 >= f2) & (f1 >= f3)
+    pick2 = ~pick1 & (f2 >= f3)
+    tb_free = torch.where(pick1, 1, torch.where(pick2, 2, 3))
+    sc_free = torch.where(pick1, f1, torch.where(pick2, f2, f3))
+    forced = en > 0
+    sc_forced = fin.gather(1, (en.long() - 1).clamp(0, 2)[:, None])[:, 0]
+    tb = torch.where(forced, en, tb_free).to(torch.int32)
+    return tb, torch.where(forced, sc_forced, sc_free)
+
+
+class _Marks:
+    """Timestamps on the aligner's device: CUDA events on a card (read
+    once the host waited for the last one), the host clock on the CPU,
+    where every call returns finished."""
+
+    def __init__(self, device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.marks = []
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(self.device))
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def wait(self):
+        if self.cuda:
+            self.marks[-1].synchronize()
+
+    def ms(self, k):
+        a, b = self.marks[k], self.marks[k + 1]
+        return a.elapsed_time(b) if self.cuda else (b - a) * 1e3
+
+
+PHASES = ("fill_walk_ms", "d2h_ms", "replay_ms", "render_ms")
+
+
+@dataclasses.dataclass
+class BatchAligner:
+    """Aligns many pairs at once with length bucketing (global mode).
+
+    ``bucket_quantum`` sets the padded-shape granularity. ``max_batch``
+    caps pairs per launch and ``dirs_budget`` the bytes of one launch's
+    dirs array; ``align_batch`` shrinks its chunks to fit. ``device`` is
+    where the kernels run. ``last_phases`` holds the phase times (ms) of
+    the latest ``align_batch``: fill+walk and device-to-host on the
+    device's clock, replay and render on the host's.
+    """
+
+    params: ScoringParams = ScoringParams()
+    start_type: int = -1
+    end_type: int = -1
+    parity_swap: bool = True
+    bucket_quantum: int = 128
+    max_batch: int = 512
+    dirs_budget: int = 2 << 30
+    # a substitution matrix (core.SubstitutionMatrix in the JAX package)
+    matrix: object = None
+    # buckets wider than this need the column-chunked long fill
+    long_threshold: int = 16384
+    device: str = "cuda"
+
+    def __post_init__(self):
+        self._dev = torch.device(self.device)
+        if self._dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"device {self.device!r}: 'cuda' or 'cpu'")
+        if self._dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"BatchAligner(device={self.device!r}) needs a CUDA card "
+                "and none is available; pass device='cpu' to run the "
+                "plain PyTorch kernels on the CPU")
+        if self.matrix is not None:
+            raise NotImplementedError(
+                "substitution-matrix scoring (kernel K4) is not ported "
+                "yet: ROADMAP queue 1 item 8")
+        self.last_phases = dict.fromkeys(PHASES, 0.0)
+
+    def _check_width(self, key):
+        if max(key) > self.long_threshold:
+            raise NotImplementedError(
+                f"bucket {key} is wider than long_threshold="
+                f"{self.long_threshold}; the column-chunked long fill "
+                "(kernel K6) is not ported yet: ROADMAP queue 1 item 9")
+
+    def _prep(self, pairs):
+        enc_a = _encode_many([p[0] for p in pairs])
+        enc_b = _encode_many([p[1] for p in pairs])
+        if self.parity_swap:  # quirk B8: roles swap when m > n
+            for k in range(len(pairs)):
+                if enc_a[k].shape[0] > enc_b[k].shape[0]:
+                    enc_a[k], enc_b[k] = enc_b[k], enc_a[k]
+        buckets = {}
+        for k, (ea, eb) in enumerate(zip(enc_a, enc_b)):
+            key = (_round_up(ea.shape[0], self.bucket_quantum),
+                   _round_up(eb.shape[0], self.bucket_quantum))
+            buckets.setdefault(key, []).append(k)
+        for key in buckets:
+            self._check_width(key)
+        return enc_a, enc_b, buckets
+
+    def _bucket_arrays(self, enc_a, enc_b, idxs, key):
+        bm, bn = key
+        B = len(idxs)
+        a = np.full((B, bm), PAD_A, np.uint8)
+        b = np.full((B, bn), PAD_B, np.uint8)
+        la = np.zeros((B,), np.int32)
+        lb = np.zeros((B,), np.int32)
+        for r, k in enumerate(idxs):
+            la[r] = enc_a[k].shape[0]
+            lb[r] = enc_b[k].shape[0]
+            a[r, : la[r]] = enc_a[k]
+            b[r, : lb[r]] = enc_b[k]
+        return a, b, la, lb
+
+    def _to_dev(self, *arrays):
+        return [torch.from_numpy(x).to(self._dev) for x in arrays]
+
+    def score_batch(self, pairs):
+        """Scores for a list of (a, b) pairs: (scores, end_tables)."""
+        enc_a, enc_b, buckets = self._prep(pairs)
+        scores = np.zeros(len(pairs), np.float32)
+        tables = np.zeros(len(pairs), np.int32)
+        for key, idxs in buckets.items():
+            for s in range(0, len(idxs), self.max_batch):
+                chunk = idxs[s: s + self.max_batch]
+                a, b, la, lb = self._bucket_arrays(enc_a, enc_b, chunk, key)
+                st = np.full(len(chunk), self.start_type, np.int32)
+                en = np.full(len(chunk), self.end_type, np.int32)
+                t_a, t_b, t_la, t_lb, t_st, t_en = self._to_dev(
+                    a, b, la, lb, st, en)
+                fin = score_fill(t_a, t_b, t_la, t_lb, t_st, self.params)
+                tb, sc = _end_choice(fin, t_en, self.params.h)
+                scores[chunk] = sc.cpu().numpy()
+                tables[chunk] = tb.cpu().numpy()
+        return scores, tables
+
+    def align_batch(self, pairs, offsets=None, traceback_mode="parity",
+                    start_types=None, end_types=None):
+        """Full alignments (device fill + walk, host replay) of all pairs.
+
+        ``offsets``: optional per-pair (id_a, id_b) global coordinate
+        offsets (partitioned segment solves); rows are then left to the
+        caller. ``traceback_mode``: "parity" (reference quirk B1) or
+        "full" (emit the forced edge runs, needed to stitch segments).
+        ``start_types``/``end_types``: optional per-pair boundary types
+        overriding the aligner's; a mixed batch is still one launch per
+        chunk."""
+        if traceback_mode not in ("parity", "full"):
+            raise ValueError(
+                f"traceback_mode {traceback_mode!r}: 'parity' or 'full'")
+        enc_a, enc_b, buckets = self._prep(pairs)
+        results: list = [None] * len(pairs)
+        self.last_phases = dict.fromkeys(PHASES, 0.0)
+        pending: list = []
+        for key, idxs in buckets.items():
+            bm, bn = key
+            per_pair = 2 * (bm + 1) * (bn + 1)  # uint16 dirs
+            step = max(1, min(self.max_batch, self.dirs_budget // per_pair))
+            if len(idxs) >= 64 and step >= len(idxs):
+                # two chunks, so the second one's fill hides the first
+                # one's host replay and render
+                step = -(-len(idxs) // 2)
+            elif step < len(idxs):
+                # equal chunks: a ragged tail pays a whole walk for little
+                nchunks = -(-len(idxs) // step)
+                step = -(-len(idxs) // nchunks)
+            for s in range(0, len(idxs), step):
+                chunk = idxs[s: s + step]
+                a, b, la, lb = self._bucket_arrays(enc_a, enc_b, chunk, key)
+                st = np.full(len(chunk), self.start_type, np.int32)
+                en = np.full(len(chunk), self.end_type, np.int32)
+                if start_types is not None:
+                    st[:] = [start_types[k] for k in chunk]
+                if end_types is not None:
+                    en[:] = [end_types[k] for k in chunk]
+                pending.append(
+                    (chunk, la, lb, self._dispatch_fused(a, b, la, lb, st,
+                                                         en)))
+                while len(pending) > 1:
+                    self._emit_chunk(pending.pop(0), enc_a, enc_b, results,
+                                     offsets, traceback_mode)
+        while pending:
+            self._emit_chunk(pending.pop(0), enc_a, enc_b, results,
+                             offsets, traceback_mode)
+        return results
+
+    def _dispatch_fused(self, a, b, la, lb, st, en):
+        """Queue fill, end choice, walk and the device-to-host copies of
+        one chunk on the current stream; returns the handles without
+        waiting for the device."""
+        max_steps = int(la.max(initial=0) + lb.max(initial=0)) + 1
+        marks = _Marks(self._dev)
+        t_a, t_b, t_la, t_lb, t_st, t_en = self._to_dev(a, b, la, lb, st,
+                                                        en)
+        marks.mark()
+        dirs, fin = rowcb_fill(t_a, t_b, t_la, t_lb, t_st, self.params)
+        tb, sc = _end_choice(fin, t_en, self.params.h)
+        entries, used = rle_walk(dirs, t_la, t_lb, tb, max_steps)
+        del dirs
+        marks.mark()
+        # the capped prefix of the entries ships with the scores; the
+        # whole buffer stays on the device for the rare overflow
+        cap = min(max_steps, max(256, max_steps // 16))
+        pin = self._dev.type == "cuda"
+        host = []
+        for x in (entries[:cap], used, tb, sc):
+            buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=pin)
+            buf.copy_(x, non_blocking=pin)
+            host.append(buf)
+        marks.mark()
+        return entries, host, marks, max_steps
+
+    def _collect_fused(self, handles, la, lb, mode, offsets, chunk):
+        """Wait for a dispatched chunk, fetch the overflow rounds if the
+        walk ran past the shipped cap, and replay natively."""
+        entries_d, (ent_h, used_h, tb_h, sc_h), marks, _ = handles
+        marks.wait()
+        self.last_phases["fill_walk_ms"] += marks.ms(0)
+        self.last_phases["d2h_ms"] += marks.ms(1)
+        used = int(used_h[0])
+        ent = ent_h.numpy()
+        if used > ent.shape[0]:
+            ent = entries_d[:used].cpu().numpy()
+        ent_b = np.ascontiguousarray(ent[:used].T)
+        tables = tb_h.numpy()
+        t0 = time.perf_counter()
+        tt, ii, jj, lens = walker.replay_rle(
+            ent_b, la, lb, tables, mode, offsets=offsets, chunk=chunk)
+        chains = [LazyChain(tt[r, : lens[r]].copy(), ii[r, : lens[r]].copy(),
+                            jj[r, : lens[r]].copy())
+                  for r in range(len(chunk))]
+        self.last_phases["replay_ms"] += (time.perf_counter() - t0) * 1e3
+        arrays = (tt, ii, jj, lens) if offsets is None else None
+        return chains, arrays, tables, sc_h.numpy()
+
+    def _emit_chunk(self, item, enc_a, enc_b, results, offsets, mode):
+        chunk, la, lb, handles = item
+        chains, arrays, tables, scores = self._collect_fused(
+            handles, la, lb, mode, offsets, chunk)
+        t0 = time.perf_counter()
+        for r, k in enumerate(chunk):
+            row_a = row_b = None
+            if arrays is not None:  # offsets: the caller renders
+                tt, ii, jj, lens = arrays
+                L = int(lens[r])
+                row_a, row_b = walker.render(enc_a[k], enc_b[k], tt[r, :L],
+                                             ii[r, :L], jj[r, :L])
+            results[k] = AlignmentResult(
+                score=float(scores[r]), chain=chains[r], aligned_a=row_a,
+                aligned_b=row_b, end_table=int(tables[r]))
+        self.last_phases["render_ms"] += (time.perf_counter() - t0) * 1e3

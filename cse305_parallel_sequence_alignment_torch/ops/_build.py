@@ -1,0 +1,89 @@
+"""Build and load the port's native code at first use.
+
+CUDA kernels (``csrc/*.cu``) are compiled by ``nvcc`` into shared
+libraries with a plain C interface and loaded with ctypes; the host
+replay/render library is compiled by ``g++`` from the reference
+package's ``native/tsalib.cpp``, read by path. Outputs go to the
+package's ``_build/`` directory, named by a digest of the source and the
+flags, so an edited source never loads a stale library. A build writes a
+private temporary file and renames it into place, so processes that
+build the same library at once never see a half-written file.
+
+Nothing here runs at import time, and nothing falls back: a compiler
+that is missing or fails raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+PKG = pathlib.Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+TSALIB = (PKG.parent / "cse305_parallel_sequence_alignment_tpu" / "native"
+          / "tsalib.cpp")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-Wall", "-pthread"]
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = pathlib.Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found on PATH or under CUDA_HOME; the CUDA kernels "
+            "are built from csrc/ at first use and need the CUDA toolkit")
+    return str(path)
+
+
+def _build(name, compiler, flags, source):
+    text = source.read_bytes()
+    digest = hashlib.sha256(
+        text + " ".join(flags).encode()).hexdigest()[:16]
+    out = BUILD / f"lib{name}-{digest}.so"
+    if not out.exists():
+        BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD / f".{out.name}.{os.getpid()}.tmp"
+        proc = subprocess.run(
+            [compiler, *flags, "-o", str(tmp), str(source)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"building {source.name} failed ({compiler}):\n"
+                f"{proc.stderr[-4000:]}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))
+
+
+@functools.lru_cache(maxsize=None)
+def cuda_library(name):
+    """ctypes handle of ``csrc/<name>.cu``, compiled for sm_90a."""
+    return _build(name, _nvcc(), NVCC_FLAGS, CSRC / f"{name}.cu")
+
+
+@functools.lru_cache(maxsize=None)
+def host_library():
+    """ctypes handle of the host replay/render library (tsalib.cpp)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host replay library is "
+                           "built from tsalib.cpp at first use")
+    return _build("tsa", gxx, GXX_FLAGS, TSALIB)
+
+
+def check(err, what):
+    """Raise if a kernel entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

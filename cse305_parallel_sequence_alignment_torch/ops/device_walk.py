@@ -1,0 +1,233 @@
+"""Run-length traceback walk on the device (K2) and its host replays.
+
+``rle_walk`` is the port of ``_walk_core_rle`` with layout "row"
+(cse305_parallel_sequence_alignment_tpu/ops/device_walk.py:124): it walks
+the K1 dirs16+runs array ``(rows, B, cols)`` back from each pair's end
+cell and ships only one uint16 entry per round, ``(op+1) | R << 2``: in
+T1 a round takes the cell's diagonal run of R code-0 steps plus one step
+of the after-run code; in T2/T3 one step. The kernel is
+``csrc/walk.cu``; a CPU tensor goes to the plain PyTorch version.
+
+``expand_rle_ops`` and ``replay_ops`` are numpy copies of the JAX
+package's host replays (same file, :241-263 and :338-439). The main path
+replays with the native library (native/walker.py); these are the test
+references.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from cse305_parallel_sequence_alignment_torch.core import (
+    DIR_T2_SHIFT,
+    DIR_T3_SHIFT,
+)
+from cse305_parallel_sequence_alignment_torch.ops import _build
+
+
+def rle_walk_plain(dirs, la, lb, t0, max_rounds):
+    """Plain PyTorch K2: (entries (max_rounds, B) uint16, used (1,) int32).
+
+    One gather per round for all pairs; stops when every pair reached an
+    edge, so ``used`` is the exact number of rounds any pair took."""
+    nrows, B, ncols = dirs.shape
+    dev = dirs.device
+    bidx = torch.arange(B, device=dev)
+    i, j, t = la.to(torch.int64), lb.to(torch.int64), t0.to(torch.int64)
+    done = (i == 0) | (j == 0)
+    ent = torch.zeros((max_rounds, B), dtype=torch.int32, device=dev)
+    r = 0
+    d16 = dirs.view(torch.int16)  # few PyTorch kernels take uint16
+    while r < max_rounds and not bool(done.all()):
+        word = d16[i.clamp(0, nrows - 1), bidx,
+                   j.clamp(0, ncols - 1)].to(torch.int32) & 0xFFFF
+        is_run = t == 1
+        shift = torch.where(t == 2, DIR_T2_SHIFT, DIR_T3_SHIFT)
+        k = torch.where(is_run, (word >> 8) & 255, 0)
+        op = torch.where(is_run, (word >> 6) & 3, (word >> shift) & 3)
+        di = torch.where(is_run, k + 1, (t == 3).to(torch.int32))
+        dj = torch.where(is_run, k + 1, (t == 2).to(torch.int32))
+        active = ~done
+        ent[r] = torch.where(active, (op + 1) | (k << 2), 0)
+        t = torch.where(active, op + 1, t)
+        i = torch.where(active, i - di, i)
+        j = torch.where(active, j - dj, j)
+        done = done | (i <= 0) | (j <= 0)
+        r += 1
+    used = torch.tensor([r], dtype=torch.int32, device=dev)
+    return ent.to(torch.int16).view(torch.uint16), used
+
+
+def _check(dirs, la, lb, t0, max_rounds):
+    if dirs.dtype != torch.uint16 or dirs.dim() != 3:
+        raise TypeError("dirs must be a (rows, B, cols) uint16 tensor")
+    B = dirs.shape[1]
+    for name, v in (("la", la), ("lb", lb), ("t0", t0)):
+        if v.dtype != torch.int32 or tuple(v.shape) != (B,):
+            raise ValueError(f"{name} must be ({B},) int32, got "
+                             f"{tuple(v.shape)} {v.dtype}")
+    for v in (dirs, la, lb, t0):
+        if v.device != dirs.device:
+            raise ValueError("all inputs must be on one device")
+        if not v.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+    if max_rounds < 1:
+        raise ValueError("max_rounds must be >= 1")
+    if dirs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dirs.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """ctypes entry point of csrc/walk.cu."""
+    fn = _build.cuda_library("walk").rle_walk
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    return fn
+
+
+def rle_walk(dirs, la, lb, t0, max_rounds):
+    """K2: run-length walk of every pair from (la, lb) in table t0.
+
+    Returns (entries (max_rounds, B) uint16, zero past each pair's last
+    round, and used (1,) int32, the largest round count), both on the
+    dirs' device; nothing is synchronised."""
+    _check(dirs, la, lb, t0, max_rounds)
+    if dirs.device.type == "cpu":
+        return rle_walk_plain(dirs, la, lb, t0, max_rounds)
+    nrows, B, ncols = dirs.shape
+    dev = dirs.device
+    ent = torch.zeros((max_rounds, B), dtype=torch.int16,
+                      device=dev).view(torch.uint16)
+    used = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _entry()(dirs.data_ptr(), la.data_ptr(), lb.data_ptr(),
+                       t0.data_ptr(), ent.data_ptr(), used.data_ptr(), B,
+                       nrows, ncols, max_rounds,
+                       torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "rle_walk")
+    rle_walk.launches += 1
+    return ent, used
+
+
+rle_walk.launches = 0
+
+
+def expand_rle_ops(entries, max_steps):
+    """Expand (B, Rn) RLE walk entries to the dense per-step op stream
+    ((B, <=max_steps) uint8) of the single-step walk.
+
+    entry = op | k << 2 -> k steps of op 1 (the diagonal run) followed
+    by one step of op; op == 0 = round not taken."""
+    entries = np.asarray(entries)
+    B, Rn = entries.shape
+    op = (entries & 3).astype(np.uint8)
+    k = (entries >> 2).astype(np.int64)
+    lens = np.where(op > 0, k + 1, 0)
+    ends = np.cumsum(lens, axis=1)
+    total = ends[:, -1] if Rn else np.zeros(B, np.int64)
+    L = min(int(total.max(initial=0)), max_steps) if B else 0
+    L = max(L, 1)
+    dense = np.zeros((B, L), np.uint8)
+    pos = np.arange(L, dtype=np.int64)[None, :]
+    dense[pos < total[:, None]] = 1
+    idx = ends - 1
+    valid = (op > 0) & (idx < L)
+    bflat = np.broadcast_to(np.arange(B)[:, None], idx.shape)[valid]
+    dense[bflat, idx[valid]] = op[valid]
+    return dense
+
+
+def replay_ops(ops, la, lb, tables, mode="parity", offsets=None,
+               chunk=None):
+    """Vectorised host replay of per-step walk op codes (global mode).
+
+    Positions follow from the table sequence (t_0 = the end table, t_k =
+    ops[k-1]) by two cumulative sums. Returns (tt, ii, jj, lens) with
+    pair r's chain at [r, :lens[r]] in start->end order, quirk-B2 zeros
+    and offsets applied; ``mode`` "parity" drops the edge-entry point
+    (quirk B1), "full" emits the forced edge runs to the corner.
+    """
+    B, L = ops.shape
+    if offsets is not None and chunk is not None:
+        offs = np.asarray([offsets[chunk[r]] for r in range(B)], np.int32)
+        id_a, id_b = offs[:, 0:1], offs[:, 1:2]
+    else:
+        id_a = id_b = np.zeros((B, 1), np.int32)
+
+    T = np.empty((B, L + 1), np.int32)
+    T[:, 0] = tables
+    T[:, 1:] = ops
+    mv = T[:, :-1]
+    di = (mv == 1) | (mv == 3)
+    dj = (mv == 1) | (mv == 2)
+    pos_i = np.empty((B, L + 1), np.int32)
+    pos_j = np.empty((B, L + 1), np.int32)
+    pos_i[:, 0] = la
+    pos_j[:, 0] = lb
+    np.subtract(la[:, None].astype(np.int32),
+                np.cumsum(di, axis=1, dtype=np.int32), out=pos_i[:, 1:])
+    np.subtract(lb[:, None].astype(np.int32),
+                np.cumsum(dj, axis=1, dtype=np.int32), out=pos_j[:, 1:])
+    # first index whose ENTRY position sits on an edge = steps taken
+    edge = (pos_i == 0) | (pos_j == 0)
+    reached = edge.any(axis=1)
+    if not reached.all():
+        bad = np.nonzero(~reached)[0]
+        raise RuntimeError(
+            f"walk never reached a DP edge for pairs {bad[:8].tolist()} "
+            f"(corrupt dirs or undersized max_steps {L})")
+    steps = np.argmax(edge, axis=1)
+    pts_i = np.where(T == 2, 0, pos_i + id_a)
+    pts_j = np.where(T == 3, 0, pos_j + id_b)
+
+    if mode == "parity":
+        # out[r, q] = src[r, K_r - 1 - q], q < K_r
+        lens = steps.astype(np.int64)
+        cap = int(lens.max(initial=0)) if B else 0
+        q = np.arange(max(cap, 1))
+        idx = lens[:, None] - 1 - q[None, :cap]
+        valid = idx >= 0
+        idx = np.where(valid, idx, 0)
+        tt = np.where(valid, np.take_along_axis(T, idx, axis=1), 0)
+        ii = np.where(valid, np.take_along_axis(pts_i, idx, axis=1), 0)
+        jj = np.where(valid, np.take_along_axis(pts_j, idx, axis=1), 0)
+        return tt, ii, jj, lens
+    cap = L + 1 + int(la.max(initial=0) + lb.max(initial=0))
+    tt = np.zeros((B, cap), np.int64)
+    ii = np.zeros((B, cap), np.int64)
+    jj = np.zeros((B, cap), np.int64)
+    lens = np.zeros(B, np.int64)
+    for r in range(B):
+        K = int(steps[r])
+        t_r = T[r, K - 1:: -1] if K else T[r, :0]
+        i_r = pts_i[r, K - 1:: -1] if K else pts_i[r, :0]
+        j_r = pts_j[r, K - 1:: -1] if K else pts_j[r, :0]
+        # forced edge runs from the stop position (I, J) to the corner;
+        # the chain-order first element (the rev-list's last appended
+        # point) is dropped (quirk B1), so the edge-entry point stays in
+        si, sj = int(pos_i[r, K]), int(pos_j[r, K])
+        parts_t = [np.array([T[r, K]], np.int64), t_r]
+        parts_i = [np.array([pts_i[r, K]], np.int64), i_r]
+        parts_j = [np.array([pts_j[r, K]], np.int64), j_r]
+        if sj > 0:  # gap-in-A run along row 0 (chain order: j 0..sj-1)
+            parts_t.insert(0, np.full(sj, 2, np.int64))
+            parts_i.insert(0, np.zeros(sj, np.int64))
+            parts_j.insert(0, np.arange(0, sj, dtype=np.int64) + id_b[r, 0])
+        if si > 0:  # gap-in-B run along column 0
+            parts_t.insert(0, np.full(si, 3, np.int64))
+            parts_i.insert(0, np.arange(0, si, dtype=np.int64) + id_a[r, 0])
+            parts_j.insert(0, np.zeros(si, np.int64))
+        t_r = np.concatenate(parts_t)[1:]
+        i_r = np.concatenate(parts_i)[1:]
+        j_r = np.concatenate(parts_j)[1:]
+        lens[r] = t_r.shape[0]
+        tt[r, : lens[r]] = t_r
+        ii[r, : lens[r]] = i_r
+        jj[r, : lens[r]] = j_r
+    return tt, ii, jj, lens

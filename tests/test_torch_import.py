@@ -1,0 +1,71 @@
+"""The port's import boundary and its refusal to leave its device.
+
+The port never imports ``jax`` or the JAX package (whose ``__init__``
+imports jax unless ``JAX_PLATFORMS`` names the CPU), and an aligner
+asked for a CUDA card never computes on the CPU instead.
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+PROBE = """
+import sys
+import cse305_parallel_sequence_alignment_torch as port
+import cse305_parallel_sequence_alignment_torch.__main__
+from cse305_parallel_sequence_alignment_torch import api, models
+from cse305_parallel_sequence_alignment_torch.models import (
+    BatchAligner, GotohAligner)
+from cse305_parallel_sequence_alignment_torch.ops import (
+    _build, device_walk, rowcb)
+from cse305_parallel_sequence_alignment_torch.native import walker
+from cse305_parallel_sequence_alignment_torch.utils import config, fasta
+res = port.align("AGGA", "AGTGC", device="cpu")
+assert (res.aligned_a, res.aligned_b) == ("AG-GA", "AGTGC")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib",
+                 "cse305_parallel_sequence_alignment_tpu")))
+print("BAD", bad)
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "BAD []"
+
+
+def test_cuda_aligner_refuses_cpu_host():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from cse305_parallel_sequence_alignment_torch import api
+    from cse305_parallel_sequence_alignment_torch.models.batch import (
+        BatchAligner,
+    )
+    from cse305_parallel_sequence_alignment_torch.models.gotoh import (
+        GotohAligner,
+    )
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchAligner()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GotohAligner().align("AGGA", "AGTGC")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.score_pairs([("AGGA", "AGTGC")])
+    with pytest.raises(ValueError):
+        BatchAligner(device="meta")
+
+
+def test_unported_options_name_their_roadmap_item():
+    from cse305_parallel_sequence_alignment_torch.models.batch import (
+        BatchAligner,
+    )
+    with pytest.raises(NotImplementedError, match="K4"):
+        BatchAligner(device="cpu", matrix=object())
