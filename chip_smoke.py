@@ -4,27 +4,42 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from ``cse305_parallel_sequence_alignment_torch/
-csrc`` and drives its main path, global full alignment of many pairs:
+csrc`` (one compiler process per source, all at once) and drives its two
+main paths, global full alignment of many pairs and the balanced
+partition of one long pair:
 
 1. card, torch and CUDA versions; the kernels' build time;
-2. each kernel (K1 dirs16+runs fill, K3 score fill, K2 run-length walk)
-   against its plain PyTorch version on the card, bit for bit, on 8
-   ragged pairs up to 2 kb with every start type, on rows too wide for
-   shared memory, and on 256 x 2 kb; both timed with CUDA events;
+2. each kernel against its plain PyTorch version on the card, bit for
+   bit, both timed with CUDA events: K1 dirs16+runs fill, K3 score fill
+   and K2 run-length walk on 8 ragged pairs up to 2 kb with every start
+   type, on rows too wide for shared memory, and on 256 x 2 kb; K6 long
+   fill on 8 jobs of 3-5 k x 17-20 k with mixed start types, finals and
+   last rows; K7 on one 6,000 x 20,000 job for 3 start types;
 3. the golden cases (tests/golden/cases.jsonl) through
    ``BatchAligner(device="cuda")``: 34 pipeline rows byte-equal, 152
    subproblem chains and finals equal;
-4. the main path at real size, with every launch counter set to 0
+4. the global path at real size, with every launch counter set to 0
    first: ``align_batch`` on 256 random pairs x 2 kb (one warm-up, 3
    timed runs, phase split), ``score_batch`` agreeing with it, and 16
    pairs of 12-16 kb in ``traceback_mode="full"`` whose chains re-score
    to their scores;
-5. the CLI ``align`` in a subprocess;
-6. every kernel launched by step 4.
+5. the partition path at the dataset's scale, counters set to 0 again,
+   ``PartitionedAligner(p=0).align`` alone: a 97,409-nt random pair with
+   1% edits and 13,309 x 97,409 random; then, outside the launch
+   window, stitched score = chain re-score = the whole pair's K6 score
+   through ``score_batch``, rows that give back the sequences; walls,
+   levels, segments;
+6. K6 and K7 against their plain versions, bit for bit, at the shapes
+   step 5 gave them (each bisection level's largest K7 job, or its whole
+   K6 bucket), which set their times in the kernels line; each K7 level
+   also timed as one K6 launch over its jobs;
+7. the CLI ``align`` and ``partition`` in subprocesses;
+8. every kernel of each path launched in step 4 or 5.
 
-Prints a JSON line of the kernels, the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``. Any failure raises; the script
-exits non-zero at once when no CUDA device is available.
+Prints a JSON line of the kernels (times, bounds, launches), the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``. Any
+failure raises; the script exits non-zero at once when no CUDA device is
+available.
 """
 
 from __future__ import annotations
@@ -34,12 +49,35 @@ import pathlib
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 PKG = "cse305_parallel_sequence_alignment_torch"
 ACGT = np.frombuffer(b"ACGT", np.uint8)
+
+# H100 SXM datasheet peaks: float32 outside the tensor
+# cores, and HBM3
+FP32_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
+# float operations and compares per DP cell, counted from csrc/: the score
+# sweep (K3, K6, K7: 14 in pass 1, 3 in pass 2) and K1 (the sweep plus
+# the three argmax3 of the direction codes)
+SWEEP_OPS = 17
+DIRS_OPS = 29
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of ops at the fp32 peak and
+    bytes at the HBM rate."""
+    t_ops = ops / FP32_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def card_line():
@@ -64,10 +102,12 @@ def max_err(x, y):
     return float(d.max()) if d.numel() else 0.0
 
 
-def timed(fn, reps):
-    """(result, ms per call) by CUDA events after one warm-up call."""
+def timed(fn, reps, warm=True):
+    """(result, ms per call) by CUDA events, after one warm-up call unless
+    ``warm`` is false."""
     import torch
-    out = fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -156,6 +196,14 @@ def phase_kernels(report):
         if e1 or e2 or e3:
             raise RuntimeError(f"kernel disagrees with its plain version "
                                f"on {name}: K1 {e1} K3 {e3} K2 {e2}")
+        cells = float((la.astype(np.int64) * lb).sum())
+        ins = nbytes(ta, tb_, tla, tlb, tst)
+        # K2 reads one dirs cell per round taken
+        taken = int((u16(w_k) != 0).sum())
+        bounds = {"K1": bound(DIRS_OPS * cells, ins + nbytes(d_k, f_k)),
+                  "K3": bound(SWEEP_OPS * cells, ins + nbytes(s_k)),
+                  "K2": bound(0, 2 * taken + nbytes(tla, tlb, t0, w_k,
+                                                    u_k))}
         for key, err, ms, pms in (("K1", e1, ms1, pms1),
                                   ("K3", e3, ms3, pms3),
                                   ("K2", e2, ms2, pms2)):
@@ -163,8 +211,161 @@ def phase_kernels(report):
             rep["max_abs_err"] = max(rep["max_abs_err"], err)
             if big:
                 rep["ms"], rep["plain_ms"] = ms, pms
+                rep["bound_ms"], rep["bound_by"] = bounds[key]
         del d_k, d_p
         torch.cuda.empty_cache()
+
+
+def phase_long_kernels(report):
+    """K6 and K7 against their plain versions, bit for bit, with mixed
+    start types at widths far past shared memory, in both of K6's capture
+    modes. The shapes of the partition path are checked and timed by
+    ``phase_long_main``."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+    from cse305_parallel_sequence_alignment_torch.ops import (
+        longrow,
+        longstair,
+    )
+
+    params = ScoringParams()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    B = 8
+    la = rng.integers(3000, 5001, B).astype(np.int32)
+    lb = rng.integers(17000, 20001, B).astype(np.int32)
+    st = np.array([-1, -2, -3, 1, 2, 3, -1, -2], np.int32)
+    a, b = bucket(rng, la, lb, int(la.max()), int(lb.max()))
+    args = [torch.from_numpy(x).to(dev) for x in (a, b, la, lb, st)]
+    cells = float((la.astype(np.int64) * lb).sum())
+    for want_row in (False, True):
+        out_k, ms = timed(
+            lambda: longrow.long_fill(*args, params, want_row), 3)
+        out_p, pms = timed(
+            lambda: longrow.long_fill_plain(*args, params, want_row), 1,
+            warm=False)
+        err = max_err(out_k, out_p)
+        mode = "rows" if want_row else "finals"
+        print(f"[kernels] K6 {mode} 8 x 3-5 k x 17-20 k: err {err} "
+              f"{ms:.3f} ms (plain {pms:.1f} ms), "
+              f"{cells / ms / 1e6:.1f} GCUPS", flush=True)
+        if err:
+            raise RuntimeError(f"K6 {mode} disagrees with its plain version")
+        report["K6"]["max_abs_err"] = max(report["K6"]["max_abs_err"], err)
+
+    x = torch.from_numpy(ACGT[rng.integers(0, 4, 6000)]).to(dev)
+    y = torch.from_numpy(ACGT[rng.integers(0, 4, 20000)]).to(dev)
+    for t in (-1, -2, 3):
+        row_k, ms = timed(
+            lambda: longstair.stair_lastrow_device(x, y, t, params), 3)
+        row_p, pms = timed(
+            lambda: longstair.stair_lastrow_plain(x, y, t, params), 1,
+            warm=False)
+        err = max_err(row_k, row_p)
+        print(f"[kernels] K7 6,000 x 20,000 start {t}: err {err} "
+              f"{ms:.3f} ms (plain {pms:.1f} ms)", flush=True)
+        if err:
+            raise RuntimeError("K7 disagrees with its plain version")
+        report["K7"]["max_abs_err"] = max(report["K7"]["max_abs_err"], err)
+
+
+def level_tasks(ea, eb, p, params):
+    """The tasks of each bisection level of (ea, eb) into p segments,
+    recorded from a run of the level-batched crossing search."""
+    from cse305_parallel_sequence_alignment_torch.ops.longrow import (
+        batched_crossings,
+    )
+    from cse305_parallel_sequence_alignment_torch.parallel.partition import (
+        balanced_partition,
+    )
+    levels = []
+
+    def record(tasks):
+        levels.append(tasks)
+        return batched_crossings(tasks, params)
+
+    balanced_partition(ea, eb, p, params, crossings_fn=record)
+    return levels
+
+
+def phase_long_main(report, runs):
+    """K6 and K7 against their plain versions, bit for bit, at the shapes
+    the partition path gave them: for every bisection level of both pairs,
+    the level's largest job where it went through K7, else its whole K6
+    bucket. The kernels line takes the largest K6 and K7 shapes. Each K7
+    level is also timed as one K6 launch over its jobs, rows equal."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+    from cse305_parallel_sequence_alignment_torch.ops import (
+        longrow,
+        longstair,
+    )
+
+    params = ScoringParams()
+    dev = torch.device("cuda")
+    largest = {"K6": 0.0, "K7": 0.0}
+    for run in runs:
+        levels = level_tasks(run["ea"], run["eb"], run["p"], params)
+        for lvl, tasks in enumerate(levels, 1):
+            jobs = longrow.level_jobs(tasks)
+            bucket = longrow._job_bucket(jobs, dev)
+            la, lb = (v.cpu().numpy().astype(np.int64) for v in bucket[2:4])
+            if longrow.stair_route(jobs):
+                key = "K7"
+                one = [(torch.from_numpy(np.ascontiguousarray(x)).to(dev),
+                        torch.from_numpy(np.ascontiguousarray(y)).to(dev), t)
+                       for x, y, t in jobs]
+                k = int(np.argmax(la * lb))
+                x, y, t = one[k]
+                out_k, ms = timed(lambda: longstair.stair_lastrow_device(
+                    x, y, t, params), 3)
+                out_p, pms = timed(lambda: longstair.stair_lastrow_plain(
+                    x, y, t, params), 1, warm=False)
+                cells = float(la[k] * lb[k])
+                ins = nbytes(x, y)
+                shape = f"job {la[k]} x {lb[k]} of {len(jobs)}"
+                # the level's serial K7 launches against one K6 launch
+                rows7, ms7 = timed(lambda: [longstair.stair_lastrow_device(
+                    x, y, t, params) for x, y, t in one], 3)
+                rows6, ms6 = timed(lambda: longrow.long_fill(
+                    *bucket, params, True), 3)
+                same = max(max_err(r, rows6[j, :, : r.shape[1]])
+                           for j, r in enumerate(rows7))
+                print(f"[long-main] level {lvl} as {len(jobs)} serial K7 "
+                      f"{ms7:.3f} ms, as one K6 launch {ms6:.3f} ms; "
+                      f"rows err {same}", flush=True)
+                if same:
+                    raise RuntimeError("K6 and K7 rows differ")
+            else:
+                key = "K6"
+                out_k, ms = timed(lambda: longrow.long_fill(
+                    *bucket, params, True), 3)
+                out_p, pms = timed(lambda: longrow.long_fill_plain(
+                    *bucket, params, True), 1, warm=False)
+                cells = float((la * lb).sum())
+                ins = nbytes(*bucket)
+                shape = (f"bucket {len(jobs)} x {la.min()}-{la.max()} x "
+                         f"{lb.min()}-{lb.max()}")
+            err = max_err(out_k, out_p)
+            print(f"[long-main] {run['name']} level {lvl} {key} {shape}: "
+                  f"err {err} {ms:.3f} ms (plain {pms:.1f} ms), "
+                  f"{cells / ms / 1e6:.1f} GCUPS", flush=True)
+            if err:
+                raise RuntimeError(f"{key} disagrees with its plain version "
+                                   f"at {run['name']} level {lvl}")
+            rep = report[key]
+            rep["max_abs_err"] = max(rep["max_abs_err"], err)
+            if cells > largest[key]:
+                largest[key] = cells
+                rep["ms"], rep["plain_ms"] = ms, pms
+                rep["bound_ms"], rep["bound_by"] = bound(
+                    SWEEP_OPS * cells, ins + nbytes(out_k))
+            del out_k, out_p
+        torch.cuda.empty_cache()
+    if not all(largest.values()):
+        raise RuntimeError(f"a long kernel had no partition shape: {largest}")
 
 
 def phase_golden():
@@ -219,21 +420,6 @@ def phase_golden():
         raise RuntimeError("golden cases missing")
 
 
-def score_chain(a_enc, b_enc, chain, params):
-    """Affine score of an explicit chain (independent evaluator)."""
-    g, h, match, mismatch = params.astuple()
-    score, prev_t = 0.0, None
-    for (i, j, t) in chain:
-        if t == 1:
-            score += match if a_enc[i - 1] == b_enc[j - 1] else mismatch
-        else:
-            score -= g
-            if t != prev_t:
-                score -= h
-        prev_t = t
-    return score
-
-
 def mutate(rng, s, rate):
     """Copy of s with substitutions and short indels at ``rate`` each."""
     out, k = [], 0
@@ -258,6 +444,9 @@ def phase_main_path():
     from cse305_parallel_sequence_alignment_torch.core import ScoringParams
     from cse305_parallel_sequence_alignment_torch.models.batch import (
         BatchAligner,
+    )
+    from cse305_parallel_sequence_alignment_torch.parallel.partition import (
+        score_chain,
     )
 
     rng = np.random.default_rng(7)
@@ -315,6 +504,71 @@ def phase_main_path():
           f"{[r.score for r in res]}", flush=True)
 
 
+def phase_partition(report, runs):
+    """Both dataset-scale pairs through ``PartitionedAligner(p=0)``, and
+    nothing else, so that the launch window holds only ``align``; each
+    pair's run (with its K6/K7 launches) is appended to ``runs``."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.parallel.partition import (
+        PartitionedAligner,
+    )
+
+    rng = np.random.default_rng(97)
+    base = ACGT[rng.integers(0, 4, 97409)]
+    pairs = [("97,409 nt vs a copy with 1% edits", base,
+              mutate(rng, base, 0.0033)),
+             ("13,309 x 97,409 random", ACGT[rng.integers(0, 4, 13309)],
+              ACGT[rng.integers(0, 4, 97409)])]
+    al = PartitionedAligner(p=0)
+    for name, a, b in pairs:
+        ea, eb = (a, b) if len(a) <= len(b) else (b, a)  # parity swap
+        before = {k: report[k]["fn"].launches for k in ("K6", "K7")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = al.align(a, b)
+        t_align = time.perf_counter() - t0
+        per = {k: report[k]["fn"].launches - before[k] for k in before}
+        for k in per:
+            report[k].setdefault("per_partition", {})[name] = per[k]
+        runs.append(dict(name=name, a=a, b=b, ea=ea, eb=eb, res=res,
+                         p=al._pick_p(len(ea), len(eb)), t_align=t_align,
+                         phases=dict(al.last_phases), per=per))
+
+
+def check_partition(runs):
+    """Each partition's stitched score = its chain re-score = the whole
+    pair's K6 score through ``score_batch``; rows give back the pair."""
+    from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+    from cse305_parallel_sequence_alignment_torch.models.batch import (
+        BatchAligner,
+    )
+    from cse305_parallel_sequence_alignment_torch.parallel.partition import (
+        score_chain,
+    )
+
+    for run in runs:
+        name, ea, eb, res, p = (run[k] for k in ("name", "ea", "eb", "res",
+                                                 "p"))
+        t0 = time.perf_counter()
+        whole, _ = BatchAligner().score_batch([(run["a"], run["b"])])
+        t_whole = time.perf_counter() - t0
+        cs = score_chain(ea, eb, res.chain, ScoringParams())
+        if not res.score == cs == float(whole[0]):
+            raise RuntimeError(f"{name}: stitched score {res.score}, chain "
+                               f"re-score {cs}, whole-pair K6 {whole[0]}")
+        if (res.aligned_a.replace("-", "") != ea.tobytes().decode()
+                or res.aligned_b.replace("-", "") != eb.tobytes().decode()):
+            raise RuntimeError(f"{name}: rows do not give back the pair")
+        phases = ", ".join(f"{k} {v:.3f}" for k, v in run["phases"].items())
+        print(f"[partition] {name} ({len(ea)} x {len(eb)}): p={p}, "
+              f"{(p - 1).bit_length()} levels, {p} segments; align "
+              f"{run['t_align']:.3f} s ({phases}); whole-pair K6 "
+              f"score_batch {t_whole:.3f} s; score {res.score} = chain "
+              f"re-score = whole-pair K6 score; launches in align "
+              f"{run['per']}", flush=True)
+
+
 def phase_cli():
     out = subprocess.run(
         [sys.executable, "-m", PKG, "align", "--a", "AGGA", "--b", "AGTGC"],
@@ -325,6 +579,23 @@ def phase_cli():
                            f"{out.stdout}\n{out.stderr}")
     print("[cli] align --a AGGA --b AGTGC -> AG-GA / AGTGC", flush=True)
 
+    from cse305_parallel_sequence_alignment_torch.parallel.partition import (
+        PartitionedAligner,
+    )
+    rng = np.random.default_rng(41)
+    a, b = (ACGT[rng.integers(0, 4, n)].tobytes().decode()
+            for n in (3000, 4000))
+    out = subprocess.run(
+        [sys.executable, "-m", PKG, "partition", "--a", a, "--b", b,
+         "--p", "4"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    want = PartitionedAligner(p=4).align(a, b)
+    if out.returncode != 0 or out.stdout.splitlines()[-2:] != [
+            want.aligned_a, want.aligned_b]:
+        raise RuntimeError(f"CLI partition failed (rc {out.returncode}):\n"
+                           f"{out.stderr[-4000:]}")
+    print("[cli] partition --a (3,000 nt) --b (4,000 nt) --p 4 -> the rows "
+          "of PartitionedAligner(p=4)", flush=True)
+
 
 def main():
     import torch
@@ -334,6 +605,8 @@ def main():
     from cse305_parallel_sequence_alignment_torch.ops import (
         _build,
         device_walk,
+        longrow,
+        longstair,
         rowcb,
     )
 
@@ -341,11 +614,14 @@ def main():
     print(f"[card] {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    _build.cuda_library("rowcb")
-    _build.cuda_library("walk")
-    _build.host_library()
-    print(f"[build] kernels and host library built and loaded in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with ThreadPoolExecutor() as pool:  # one compiler process per source
+        builds = [pool.submit(_build.cuda_library, k)
+                  for k in _build.KERNELS]
+        builds.append(pool.submit(_build.host_library))
+        for b in builds:
+            b.result()
+    print(f"[build] kernels {_build.KERNELS} and host library built and "
+          f"loaded in {time.perf_counter() - t0:.1f} s", flush=True)
 
     src = f"{PKG}/csrc"
     report = {
@@ -364,28 +640,54 @@ def main():
                    replaces="cse305_parallel_sequence_alignment_tpu/ops/"
                             "device_walk.py:124",
                    fn=device_walk.rle_walk),
+        "K6": dict(name="long_fill (K6 column-strip long fill)",
+                   route="cuda", source=f"{src}/longrow.cu",
+                   replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                            "pallas_longrow.py:79",
+                   fn=longrow.long_fill),
+        "K7": dict(name="stair_lastrow_device (K7 one-job last row)",
+                   route="cuda", source=f"{src}/longrow.cu",
+                   replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                            "pallas_longstair.py:81",
+                   fn=longstair.stair_lastrow_device),
     }
     for rep in report.values():
-        rep["max_abs_err"] = 0.0
+        # no single PyTorch call computes a Gotoh fill or walk
+        rep.update(max_abs_err=0.0, launches=0, library_ms=None)
     phase_kernels(report)
+    phase_long_kernels(report)
     phase_golden()
 
-    for rep in report.values():
-        rep["fn"].launches = 0
-    phase_main_path()
-    torch.cuda.synchronize()
-    for rep in report.values():
-        rep["launches"] = rep.pop("fn").launches
+    def run_path(name, drive, kernels):
+        """Drive one main path with every counter at 0 first; each of
+        ``kernels`` must have launched in it."""
+        for rep in report.values():
+            rep["fn"].launches = 0
+        drive()
+        torch.cuda.synchronize()
+        counts = {k: rep["fn"].launches for k, rep in report.items()}
+        print(f"[counters] {name} path launches {counts}", flush=True)
+        missing = [k for k in kernels if counts[k] < 1]
+        if missing:
+            raise RuntimeError(f"{missing} never ran on the {name} path")
+        for k, rep in report.items():
+            rep["launches"] += counts[k]
+
+    run_path("global", phase_main_path, ("K1", "K2", "K3"))
+    runs = []
+    run_path("partition", lambda: phase_partition(report, runs),
+             ("K1", "K2", "K6", "K7"))
+    check_partition(runs)
+    phase_long_main(report, runs)
     phase_cli()
-    counts = {k: rep["launches"] for k, rep in report.items()}
-    print(f"[counters] main-path launches {counts}", flush=True)
-    if min(counts.values()) < 1:
-        raise RuntimeError(f"a kernel of the main path never ran: {counts}")
 
     print(json.dumps({"kernels": [
         {k: rep[k] for k in ("name", "route", "source", "replaces",
-                             "launches", "max_abs_err", "ms", "plain_ms")}
+                             "launches", "max_abs_err", "ms", "plain_ms",
+                             "bound_ms", "bound_by", "library_ms")}
         for rep in report.values()]}))
+    print(json.dumps({"launches_per_partition": {
+        k: report[k]["per_partition"] for k in ("K6", "K7")}}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

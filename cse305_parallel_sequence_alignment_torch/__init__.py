@@ -1,16 +1,17 @@
 """PyTorch + CUDA port of the pairwise alignment framework.
 
 A second package beside ``cse305_parallel_sequence_alignment_tpu`` (the
-JAX reference, which it never imports). The ported slice is global
-Gotoh alignment of many pairs on an NVIDIA H100:
+JAX reference, which it never imports). The ported slices are global
+Gotoh alignment of many pairs and the balanced partition of one long
+pair, on an NVIDIA H100:
 
 - ``core``      scoring parameters, boundary semantics, codec, results
 - ``ops``       CUDA kernels (``csrc/``) with their plain PyTorch
                 versions: K1 dirs16+runs fill, K3 score fill, K2
-                run-length walk
+                run-length walk, K6 long fill, K7 single-job last row
 - ``models``    ``BatchAligner`` (global mode) and ``GotohAligner``
-- ``native``    host replay and render (built from the reference
-                package's ``native/tsalib.cpp``)
+- ``parallel``  ``PartitionedAligner`` (balanced partition)
+- ``native``    host replay and render (built from ``csrc/tsalib.cpp``)
 - ``utils``     run configuration, FASTA input
 - ``api``       ``align``, ``align_pairs``, ``score_pairs``
 

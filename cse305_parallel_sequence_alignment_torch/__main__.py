@@ -3,9 +3,11 @@
 The ported subcommands of the JAX package's CLI, with its flags and
 output format, plus ``--device`` ("cuda" by default):
 
-  align   one global alignment (prints the reference's two-row format)
-  batch   score/align many pairs from a FASTA file
-  info    versions and devices
+  align      one global alignment (prints the reference's two-row format)
+  batch      score/align many pairs from a FASTA file
+  partition  balanced-partition alignment of one long pair
+  longscore  score of one long pair through the long fill (K6)
+  info       versions and devices
 """
 
 from __future__ import annotations
@@ -97,6 +99,90 @@ def cmd_batch(args):
     return 0
 
 
+def cmd_partition(args):
+    cfg = config_from_args(args)
+    if args.full_dataset_pair:
+        # the reference's design target: the two longest dataset genes at
+        # full length (partial.cpp:149, main_alignment.cpp:353-410)
+        names, seqs = _load_data(cfg)
+        order = sorted(range(len(seqs)), key=lambda k: -len(seqs[k]))
+        i, j = order[0], order[1]
+        a, b = seqs[i], seqs[j]
+        print(f"pair: {names[i].split()[0]} ({len(a)} nt) x "
+              f"{names[j].split()[0]} ({len(b)} nt)", file=sys.stderr)
+    else:
+        a, b = _resolve_pair(args, cfg)
+    from cse305_parallel_sequence_alignment_torch.core import encode_seq
+    from cse305_parallel_sequence_alignment_torch.parallel.partition import (
+        PartitionedAligner,
+        score_chain,
+    )
+    t0 = time.perf_counter()
+    aligner = PartitionedAligner(params=cfg.params, p=args.p,
+                                 fill_backend=args.fill_backend,
+                                 device=args.device)
+    res = aligner.align(a, b)
+    dt = time.perf_counter() - t0
+    if args.full_dataset_pair:
+        # no ~100 kb rows on the terminal: the verified result instead
+        ea, eb = encode_seq(a), encode_seq(b)
+        if len(ea) > len(eb):
+            ea, eb = eb, ea  # the aligner's parity swap
+        cells = len(a) * len(b)
+        print(json.dumps({
+            "len_a": len(a), "len_b": len(b),
+            "score": res.score,
+            "chain_score": score_chain(ea, eb, res.chain, cfg.params),
+            "chain_len": len(res.chain),
+            "aligned_rows_len": len(res.aligned_a),
+            "wall_s": round(dt, 2),
+            "effective_gcups": round(cells / dt / 1e9, 3),
+        }))
+    else:
+        print(res.aligned_a)
+        print(res.aligned_b)
+    if args.verbose:
+        print(f"score={res.score} time={dt:.2f}s", file=sys.stderr)
+    return 0
+
+
+def cmd_longscore(args):
+    """Score one (possibly huge) pair through the long fill (K6)."""
+    if args.devices > 1:
+        raise NotImplementedError(
+            "longscore across devices (the column-sharded pipeline, kernel "
+            "K8) is not ported yet: ROADMAP queue 1 item 13")
+    cfg = config_from_args(args)
+    a, b = _resolve_pair(args, cfg)
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.core import (
+        encode_seq,
+        end_table_choice,
+    )
+    from cse305_parallel_sequence_alignment_torch.ops.longrow import (
+        long_fill,
+    )
+    ea = encode_seq(a) if isinstance(a, (str, bytes)) else a
+    eb = encode_seq(b) if isinstance(b, (str, bytes)) else b
+    t0 = time.perf_counter()
+    args_t = [torch.from_numpy(x).to(args.device) for x in (
+        ea[None, :], eb[None, :], np.array([len(ea)], np.int32),
+        np.array([len(eb)], np.int32), np.array([-1], np.int32))]
+    finals = long_fill(*args_t, cfg.params)[0].cpu().numpy()
+    dt = time.perf_counter() - t0
+    table, score = end_table_choice(
+        float(finals[0]), float(finals[1]), float(finals[2]), -1, cfg.h)
+    print(json.dumps({
+        "score": score, "end_table": table,
+        "m": len(a), "n": len(b),
+        "devices": 1,
+        "seconds": round(dt, 3),
+        "gcups": round(len(a) * len(b) / dt / 1e9, 3),
+    }))
+    return 0
+
+
 def cmd_info(args):
     import torch
     cuda = torch.cuda.is_available()
@@ -144,6 +230,29 @@ def main(argv=None):
     add_config_args(p)
     _add_device_arg(p)
     p.set_defaults(fn=cmd_batch)
+
+    p = sub.add_parser("partition", help="balanced-partition alignment")
+    _add_pair_args(p)
+    p.add_argument("--p", type=int, default=0,
+                   help="number of segments (0 = auto from memory budget)")
+    p.add_argument("--fill-backend", default="auto",
+                   choices=["auto", "rowscan", "longrow", "sharded"],
+                   help="crossing-search fill engine")
+    p.add_argument("--full-dataset-pair", action="store_true",
+                   help="align the two longest dataset sequences at full "
+                        "length (the reference's design workload)")
+    add_config_args(p)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_partition)
+
+    p = sub.add_parser("longscore",
+                       help="score of one long pair (long fill, K6)")
+    _add_pair_args(p)
+    p.add_argument("--devices", type=int, default=1,
+                   help="cards to shard the columns over (only 1 so far)")
+    add_config_args(p)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_longscore)
 
     p = sub.add_parser("info", help="versions and devices")
     p.set_defaults(fn=cmd_info)

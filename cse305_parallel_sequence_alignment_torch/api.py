@@ -1,12 +1,14 @@
-"""Convenience API, global mode (the slice of the JAX package's ``api``
-that is ported so far):
+"""Convenience API, global and partitioned modes (the slices of the JAX
+package's ``api`` that are ported so far):
 
-    align(a, b)             # one global alignment, reference semantics
-    align_pairs(pairs)      # batched full alignments
-    score_pairs(pairs)      # batched scores: (scores, end_tables)
+    align(a, b)                           # one global alignment
+    align(a, b, mode="partitioned", p=8)  # long-pair decomposition
+    align_pairs(pairs)                    # batched full alignments
+    score_pairs(pairs)                    # batched scores: (scores, end_tables)
 
-Every call takes ``device`` ("cuda" by default) and the ``BatchAligner``
-keyword arguments. The other modes raise ``NotImplementedError`` naming
+Every call takes ``device`` ("cuda" by default) and the keyword
+arguments of its aligner (``BatchAligner``, or ``PartitionedAligner``
+for "partitioned"). The other modes raise ``NotImplementedError`` naming
 the ROADMAP item that ports them.
 """
 
@@ -21,13 +23,14 @@ _LATER = {
     "semiglobal": "queue 1 item 11 (kernel K10)",
     "overlap": "queue 1 item 11 (kernel K11)",
     "banded": "queue 1 item 12 (kernel K12)",
-    "partitioned": "queue 1 item 9 (kernels K6, K7)",
 }
 
 
 def _aligner(mode, params, **kw):
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode!r}; pick from {_MODES}")
+    if mode == "partitioned":
+        raise ValueError("mode 'partitioned' is not batchable; use align()")
     if mode != "global":
         raise NotImplementedError(
             f"mode {mode!r} is not ported yet: ROADMAP {_LATER[mode]}")
@@ -37,8 +40,13 @@ def _aligner(mode, params, **kw):
     return BatchAligner(params=params or ScoringParams(), **kw)
 
 
-def align(a, b, mode="global", params=None, **kw):
+def align(a, b, mode="global", params=None, p=None, **kw):
     """One pairwise alignment; returns an ``AlignmentResult``."""
+    if mode == "partitioned":
+        from cse305_parallel_sequence_alignment_torch.parallel.partition \
+            import PartitionedAligner
+        return PartitionedAligner(params=params or ScoringParams(),
+                                  p=p or 4, **kw).align(a, b)
     return _aligner(mode, params, **kw).align_batch([(a, b)])[0]
 
 

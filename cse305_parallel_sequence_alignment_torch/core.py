@@ -141,6 +141,17 @@ def decode_seq(arr):
     return bytes(np.asarray(arr, dtype=np.uint8)).decode("ascii")
 
 
+def format_alignment(a, b, chain):
+    """The two text rows of the reference's print_seq
+    (main_alignment.cpp:32-55) of a chain, with 1-indexed source
+    positions (the JAX package's ``models/oracle.py`` function)."""
+    a = "-" + (a if isinstance(a, str) else a.decode("ascii"))
+    b = "-" + (b if isinstance(b, str) else b.decode("ascii"))
+    row_a = "".join(a[i] if t in (1, 3) else "-" for (i, j, t) in chain)
+    row_b = "".join(b[j] if t in (1, 2) else "-" for (i, j, t) in chain)
+    return row_a, row_b
+
+
 def boundary_row0(n, start_type, g, h):
     """First-row boundary (i=0, j=0..n) for T1/T2/T3.
 

@@ -7,7 +7,8 @@ run-length walk (ops/device_walk.py), and a copy of only the used walk
 rounds to pinned host memory; the host then replays and renders with the
 native library. Two chunks are in flight: the device fills and walks
 chunk c+1 while the host replays chunk c. ``score_batch`` runs the K3
-score fill only.
+score fill only, or the K6 long fill (ops/longrow.py) for buckets wider
+than ``long_threshold``.
 
 The aligner's ``device`` is explicit ("cuda" by default, or "cpu" for
 the plain PyTorch versions of the kernels); it is never switched.
@@ -31,6 +32,7 @@ from cse305_parallel_sequence_alignment_torch.core import (
 )
 from cse305_parallel_sequence_alignment_torch.native import walker
 from cse305_parallel_sequence_alignment_torch.ops.device_walk import rle_walk
+from cse305_parallel_sequence_alignment_torch.ops.longrow import long_fill
 from cse305_parallel_sequence_alignment_torch.ops.rowcb import (
     rowcb_fill,
     score_fill,
@@ -115,7 +117,7 @@ class BatchAligner:
     dirs_budget: int = 2 << 30
     # a substitution matrix (core.SubstitutionMatrix in the JAX package)
     matrix: object = None
-    # buckets wider than this need the column-chunked long fill
+    # score_batch gives buckets wider than this to the long fill (K6)
     long_threshold: int = 16384
     device: str = "cuda"
 
@@ -134,13 +136,6 @@ class BatchAligner:
                 "yet: ROADMAP queue 1 item 8")
         self.last_phases = dict.fromkeys(PHASES, 0.0)
 
-    def _check_width(self, key):
-        if max(key) > self.long_threshold:
-            raise NotImplementedError(
-                f"bucket {key} is wider than long_threshold="
-                f"{self.long_threshold}; the column-chunked long fill "
-                "(kernel K6) is not ported yet: ROADMAP queue 1 item 9")
-
     def _prep(self, pairs):
         enc_a = _encode_many([p[0] for p in pairs])
         enc_b = _encode_many([p[1] for p in pairs])
@@ -153,8 +148,6 @@ class BatchAligner:
             key = (_round_up(ea.shape[0], self.bucket_quantum),
                    _round_up(eb.shape[0], self.bucket_quantum))
             buckets.setdefault(key, []).append(k)
-        for key in buckets:
-            self._check_width(key)
         return enc_a, enc_b, buckets
 
     def _bucket_arrays(self, enc_a, enc_b, idxs, key):
@@ -180,6 +173,10 @@ class BatchAligner:
         scores = np.zeros(len(pairs), np.float32)
         tables = np.zeros(len(pairs), np.int32)
         for key, idxs in buckets.items():
+            # past the whole-row kernel's reach: the long fill, whose
+            # strips spread even a one-pair bucket over the card
+            fill = long_fill if max(key) > self.long_threshold \
+                else score_fill
             for s in range(0, len(idxs), self.max_batch):
                 chunk = idxs[s: s + self.max_batch]
                 a, b, la, lb = self._bucket_arrays(enc_a, enc_b, chunk, key)
@@ -187,7 +184,7 @@ class BatchAligner:
                 en = np.full(len(chunk), self.end_type, np.int32)
                 t_a, t_b, t_la, t_lb, t_st, t_en = self._to_dev(
                     a, b, la, lb, st, en)
-                fin = score_fill(t_a, t_b, t_la, t_lb, t_st, self.params)
+                fin = fill(t_a, t_b, t_la, t_lb, t_st, self.params)
                 tb, sc = _end_choice(fin, t_en, self.params.h)
                 scores[chunk] = sc.cpu().numpy()
                 tables[chunk] = tb.cpu().numpy()

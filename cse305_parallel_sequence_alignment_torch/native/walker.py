@@ -1,8 +1,8 @@
 """ctypes bindings for the host replay and render (``tsalib.cpp``).
 
-The library is compiled from the reference package's
-``native/tsalib.cpp`` into the port's own ``_build/`` directory at first
-use (ops/_build.py). A library that cannot be built is an error: the
+The library is compiled from the port's ``csrc/tsalib.cpp`` (a copy of
+the reference package's ``native/tsalib.cpp``) into the port's own
+``_build/`` directory at first use (ops/_build.py). A library that cannot be built is an error: the
 main path has no pure-Python stand-in.
 """
 

@@ -2,12 +2,13 @@
 
 CUDA kernels (``csrc/*.cu``) are compiled by ``nvcc`` into shared
 libraries with a plain C interface and loaded with ctypes; the host
-replay/render library is compiled by ``g++`` from the reference
-package's ``native/tsalib.cpp``, read by path. Outputs go to the
-package's ``_build/`` directory, named by a digest of the source and the
-flags, so an edited source never loads a stale library. A build writes a
-private temporary file and renames it into place, so processes that
-build the same library at once never see a half-written file.
+replay/render library is compiled by ``g++`` from the port's own copy of
+it, ``csrc/tsalib.cpp``: every source (``sources()``) lies under the
+port's ``csrc/``. Outputs go to the package's ``_build/`` directory,
+named by a digest of the source and the flags, so an edited source never
+loads a stale library. A build writes a private temporary file and
+renames it into place, so processes that build the same library at once
+never see a half-written file.
 
 Nothing here runs at import time, and nothing falls back: a compiler
 that is missing or fails raises.
@@ -26,8 +27,8 @@ import subprocess
 PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-TSALIB = (PKG.parent / "cse305_parallel_sequence_alignment_tpu" / "native"
-          / "tsalib.cpp")
+TSALIB = CSRC / "tsalib.cpp"
+KERNELS = ("rowcb", "walk", "longrow")  # csrc/<name>.cu
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
@@ -65,6 +66,11 @@ def _build(name, compiler, flags, source):
                 f"{proc.stderr[-4000:]}")
         os.replace(tmp, out)
     return ctypes.CDLL(str(out))
+
+
+def sources():
+    """Every source file this module builds."""
+    return [CSRC / f"{k}.cu" for k in KERNELS] + [TSALIB]
 
 
 @functools.lru_cache(maxsize=None)

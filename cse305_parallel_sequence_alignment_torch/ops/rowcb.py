@@ -57,8 +57,11 @@ def _shift(x, fill):
     return torch.cat([col, x[:, :-1]], dim=1)
 
 
-def _sweep_plain(a, b, la, lb, st, params, want_dirs):
-    """Row loop over (B, n+1) tensors in the kernel's float32 order."""
+def _sweep_plain(a, b, la, lb, st, params, want_dirs, want_row=False):
+    """Row loop over (B, n+1) tensors in the kernel's float32 order.
+
+    Returns (dirs or None, out): ``out`` is the finals (B, 3) at (la, lb),
+    or with ``want_row`` the whole row la of each pair, (B, 3, n+1)."""
     B, m = a.shape
     n = b.shape[1]
     dev = a.device
@@ -82,9 +85,13 @@ def _sweep_plain(a, b, la, lb, st, params, want_dirs):
     p1 = torch.where(lane0 & ((stc == 1) | (stc == -1)), zero, neg)
     p2 = torch.where(lane0, torch.where(stc == -2, zero, neg), row0_t2)
     p3 = torch.where(lane0 & (stc == -3), zero, neg)
-    fin = torch.full((B, 3), NEG_INF, dtype=f32, device=dev)
+    fin = torch.full((B, 3, n + 1) if want_row else (B, 3), NEG_INF,
+                     dtype=f32, device=dev)
 
     def capture(fin, i, t1, t2, t3):
+        if want_row:
+            return torch.where((la == i)[:, None, None],
+                               torch.stack([t1, t2, t3], dim=1), fin)
         vals = torch.cat([t.gather(1, lbi) for t in (t1, t2, t3)], dim=1)
         return torch.where((la == i)[:, None], vals, fin)
 

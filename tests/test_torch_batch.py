@@ -165,9 +165,12 @@ def test_api_global_and_other_modes():
         api.align("ACGT", "ACG", mode="local", device="cpu")
     with pytest.raises(ValueError):
         api.align("ACGT", "ACG", mode="nonsense", device="cpu")
-    with pytest.raises(NotImplementedError, match="K6"):
-        BatchAligner(device="cpu", long_threshold=64).score_batch(
-            [("A" * 10, "C" * 100)])
+    # a bucket wider than long_threshold scores through the long fill
+    long_pair = [("A" * 10, "C" * 100)]
+    s_p, t_p = BatchAligner(device="cpu", long_threshold=64).score_batch(
+        long_pair)
+    s_j, t_j = JaxBatchAligner(backend="wavefront").score_batch(long_pair)
+    assert np.array_equal(s_p, s_j) and np.array_equal(t_p, t_j)
 
 
 @pytest.mark.parametrize("start_type,end_type", [(-1, -1), (-2, 3),

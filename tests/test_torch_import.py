@@ -23,7 +23,8 @@ from cse305_parallel_sequence_alignment_torch import api, models
 from cse305_parallel_sequence_alignment_torch.models import (
     BatchAligner, GotohAligner)
 from cse305_parallel_sequence_alignment_torch.ops import (
-    _build, device_walk, rowcb)
+    _build, device_walk, longrow, longstair, rowcb)
+from cse305_parallel_sequence_alignment_torch.parallel import partition
 from cse305_parallel_sequence_alignment_torch.native import walker
 from cse305_parallel_sequence_alignment_torch.utils import config, fasta
 res = port.align("AGGA", "AGTGC", device="cpu")
@@ -41,6 +42,18 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "BAD []"
+
+
+def test_native_sources_are_the_ports_own():
+    """Every source the port builds (CUDA kernels and the host library)
+    lies under the port's own directory."""
+    from cse305_parallel_sequence_alignment_torch.ops import _build
+    pkg = ROOT / "cse305_parallel_sequence_alignment_torch"
+    srcs = _build.sources()
+    assert len(srcs) == len(_build.KERNELS) + 1
+    for src in srcs:
+        assert src.resolve().is_relative_to(pkg.resolve()), src
+        assert src.is_file(), src
 
 
 def test_cuda_aligner_refuses_cpu_host():
@@ -63,9 +76,23 @@ def test_cuda_aligner_refuses_cpu_host():
         BatchAligner(device="meta")
 
 
-def test_unported_options_name_their_roadmap_item():
+def _matrix_mode():
     from cse305_parallel_sequence_alignment_torch.models.batch import (
         BatchAligner,
     )
-    with pytest.raises(NotImplementedError, match="K4"):
-        BatchAligner(device="cpu", matrix=object())
+    BatchAligner(device="cpu", matrix=object())
+
+
+def _sharded_fill():
+    from cse305_parallel_sequence_alignment_torch.parallel.partition import (
+        PartitionedAligner,
+    )
+    PartitionedAligner(fill_backend="sharded", device="cpu")
+
+
+@pytest.mark.parametrize("make,item", [(_matrix_mode, "K4"),
+                                       (_sharded_fill, "item 13")],
+                         ids=["matrix", "sharded"])
+def test_unported_options_name_their_roadmap_item(make, item):
+    with pytest.raises(NotImplementedError, match=item):
+        make()
