@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from ``cse305_parallel_sequence_alignment_torch/
-csrc`` (one compiler process per source, all at once) and drives its two
-main paths, global full alignment of many pairs and the balanced
-partition of one long pair:
+csrc`` (one compiler process per source, all at once) and drives its
+three main paths, global full alignment of many pairs, the balanced
+partition of one long pair and local (Smith-Waterman) alignment of many
+pairs:
 
 1. card, torch and CUDA versions; the kernels' build time;
 2. each kernel against its plain PyTorch version on the card, bit for
@@ -33,8 +34,19 @@ partition of one long pair:
    step 5 gave them (each bisection level's largest K7 job, or its whole
    K6 bucket), which set their times in the kernels line; each K7 level
    also timed as one K6 launch over its jobs;
-7. the CLI ``align`` and ``partition`` in subprocesses;
-8. every kernel of each path launched in step 4 or 5.
+7. K9s/K9d local fills and K9w local walk against their plain versions,
+   bit for bit: 8 ragged pairs up to 2 kb (repetitive tie pairs, an
+   all-mismatch pair, m > n), and 256 x 2 kb of step 8's data, timed;
+8. the local path at BASELINE config 3's size, counters set to 0 again:
+   ``LocalBatchAligner.align_batch`` on 4096 pairs of 2,048 nt (seed 11;
+   even pairs share a 1,024-nt core with 3% substitutions and 1% indels,
+   odd pairs are unrelated), one warm-up and 3 timed runs with the phase
+   split and chunk count, and ``score_batch``; then, outside the window,
+   ``score_batch`` = ``align_batch``, chains re-scoring to their scores,
+   CIGARs consuming their spans, and the first 64 pairs equal to the
+   plain versions' results on the card;
+9. the CLI ``align``, ``partition`` and ``local`` in subprocesses;
+10. every kernel of each path launched in step 4, 5 or 8.
 
 Prints a JSON line of the kernels (times, bounds, launches), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Any
@@ -66,6 +78,11 @@ HBM_BYTES_PER_S = 3.35e12
 # the three argmax3 of the direction codes)
 SWEEP_OPS = 17
 DIRS_OPS = 29
+# per interior cell of csrc/local.cu: K9s 16 (max3 + add + clamp, two
+# 3-candidate gap maxima, the base compare, the best compare), K9d 26
+# (plus the start test and three argmax3)
+SW_OPS = 16
+SW_DIRS_OPS = 26
 
 
 def bound(ops, nbytes):
@@ -100,6 +117,15 @@ def max_err(x, y):
     x, y = x.to(torch.float64), y.to(torch.float64)
     d = torch.where(x == y, torch.zeros_like(x), (x - y).abs())
     return float(d.max()) if d.numel() else 0.0
+
+
+def max_err_u8(x, y):
+    """Largest |x - y| of two uint8 tensors, without widening equal ones
+    (a 256 x 2 kb dirs array is 2 GB)."""
+    import torch
+    if torch.equal(x, y):
+        return 0.0
+    return float((x.to(torch.int16) - y.to(torch.int16)).abs().max())
 
 
 def timed(fn, reps, warm=True):
@@ -596,6 +622,291 @@ def phase_cli():
     print("[cli] partition --a (3,000 nt) --b (4,000 nt) --p 4 -> the rows "
           "of PartitionedAligner(p=4)", flush=True)
 
+    from cse305_parallel_sequence_alignment_torch.models.local import (
+        LocalBatchAligner,
+    )
+    a, b = "GGGACGTACGTGGGTTAGACCA", "TTTACGTACCGTTTTAGACA"
+    out = subprocess.run(
+        [sys.executable, "-m", PKG, "local", "--a", a, "--b", b], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    r = LocalBatchAligner().align_batch([(a, b)])[0]
+    want = {"score": r.score, "cigar": r.cigar,
+            "cigar_extended": r.cigar_extended,
+            "query_span": [r.start_a, r.end_a],
+            "target_span": [r.start_b, r.end_b]}
+    if out.returncode != 0 or json.loads(out.stdout.splitlines()[-1]) != want:
+        raise RuntimeError(f"CLI local failed (rc {out.returncode}):\n"
+                           f"{out.stdout}\n{out.stderr[-4000:]}")
+    print(f"[cli] local --a {a} --b {b} -> {json.dumps(want)}", flush=True)
+
+
+def mutate_core(rng, core, sub, indel):
+    """Copy of ``core`` with substitutions at rate ``sub`` (always another
+    base) and single-base insertions and deletions at ``indel`` each
+    half."""
+    codes = np.searchsorted(ACGT, core)
+    n = len(core)
+    subs = rng.random(n) < sub
+    codes[subs] = (codes[subs] + rng.integers(1, 4, int(subs.sum()))) % 4
+    ev = rng.random(n) < indel
+    dels = ev & (rng.random(n) < 0.5)
+    ins = ev & ~dels
+    keep = ACGT[codes]
+    out = np.insert(keep, np.nonzero(ins)[0],
+                    ACGT[rng.integers(0, 4, int(ins.sum()))])
+    shift = np.cumsum(ins) - ins  # insertions placed before each base
+    return np.delete(out, np.nonzero(dels)[0] + shift[dels])
+
+
+def local_data(count=4096, L=2048, core=1024, seed=11):
+    """BASELINE config 3's pairs: even pairs share a ``core``-nt segment,
+    B's copy with 3% substitutions and 1% single-base indels, each at a
+    random offset in random flanks; odd pairs are unrelated."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for k in range(count):
+        a = ACGT[rng.integers(0, 4, L)]
+        b = ACGT[rng.integers(0, 4, L)]
+        if k % 2 == 0:
+            c = ACGT[rng.integers(0, 4, core)]
+            mc = mutate_core(rng, c, 0.03, 0.01)[:L]
+            oa = int(rng.integers(0, L - core + 1))
+            ob = int(rng.integers(0, L - len(mc) + 1))
+            a[oa: oa + core] = c
+            b[ob: ob + len(mc)] = mc
+        pairs.append((a, b))
+    return pairs
+
+
+def local_rescore(ea, eb, chain, params):
+    """Score of a local chain: its match/mismatch columns, h + g a gap
+    run (a run of one gap table); exact for integer parameters."""
+    if not len(chain):
+        return 0.0
+    c = np.asarray(list(chain), np.int64)
+    i, j, t = c[:, 0], c[:, 1], c[:, 2]
+    diag = t == 1
+    f = np.where(ea[i[diag] - 1] == eb[j[diag] - 1], params.match,
+                 params.mismatch).sum()
+    opens = ~diag & np.r_[True, t[1:] != t[:-1]]
+    gaps = int((~diag).sum())
+    return float(f - opens.sum() * (params.g + params.h)
+                 - (gaps - opens.sum()) * params.g)
+
+
+def local_bucket(pairs):
+    """(a, b, la, lb) numpy bucket of code-array pairs, padded to the
+    longest member as the aligner pads."""
+    la = np.array([len(x) for x, _ in pairs], np.int32)
+    lb = np.array([len(y) for _, y in pairs], np.int32)
+    a = np.full((len(pairs), max(1, la.max())), 254, np.uint8)
+    b = np.full((len(pairs), max(1, lb.max())), 255, np.uint8)
+    for k, (x, y) in enumerate(pairs):
+        a[k, : la[k]] = x
+        b[k, : lb[k]] = y
+    return a, b, la, lb
+
+
+def phase_local_kernels(report, data):
+    """K9s, K9d and K9w against their plain versions on the card, bit for
+    bit: 8 ragged pairs up to 2 kb, then 256 x 2 kb of the local path's
+    data, timed with CUDA events."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.models.local_oracle import (
+        LOCAL_PARAMS,
+    )
+    from cse305_parallel_sequence_alignment_torch.ops import (
+        device_walk,
+        local,
+    )
+
+    rng = np.random.default_rng(12)
+
+    def rnd(n):
+        return ACGT[rng.integers(0, 4, n)]
+
+    def text(s):
+        return np.frombuffer(s.encode(), np.uint8)
+
+    core = rnd(1200)
+    ragged = [
+        (rnd(2048), rnd(2048)),
+        (text("AC" * 1024), text("ACA" * 682)),           # ties everywhere
+        (text("ACA" * 600), text("AC" * 1000)),
+        (text("A" * 1500), text("C" * 2048)),             # all mismatch
+        (np.concatenate([rnd(500), core, rnd(348)]),      # m > n
+         np.concatenate([rnd(50), mutate_core(rng, core, 0.03, 0.01)])),
+        (rnd(1), rnd(2048)),
+        (rnd(37), rnd(900)),
+        (rnd(2048), rnd(1999)),
+    ]
+    cases = [("ragged 8 x <=2 kb", ragged, False),
+             ("256 x 2 kb (local path data)", data[:256], True)]
+    dev = torch.device("cuda")
+    for name, pairs, big in cases:
+        a, b, la, lb = local_bucket(pairs)
+        args = [torch.from_numpy(x).to(dev) for x in (a, b, la, lb)]
+        reps = 3 if big else 1
+        (bd_k, d_k), msd = timed(lambda: local.sw_dirs(*args, LOCAL_PARAMS),
+                                 reps)
+        (bd_p, d_p), pmsd = timed(lambda: local.sw_fill_plain(
+            *args, LOCAL_PARAMS, want_dirs=True), 1, warm=False)
+        ed = max(max_err(bd_k, bd_p), max_err_u8(d_k, d_p))
+        bs_k, mss = timed(lambda: local.sw_score(*args, LOCAL_PARAMS), reps)
+        bs_p, pmss = timed(lambda: local.sw_fill_plain(
+            *args, LOCAL_PARAMS, want_dirs=False)[0], 1, warm=False)
+        es = max(max_err(bs_k, bs_p), max_err(bs_k, bd_k))
+        ei = bd_k[:, 1].to(torch.int32)
+        ej = bd_k[:, 2].to(torch.int32)
+        steps = int(la.max()) + int(lb.max())
+        (w_k, u_k), msw = timed(
+            lambda: device_walk.local_walk(d_k, ei, ej, steps), reps)
+        (w_p, u_p), pmsw = timed(
+            lambda: device_walk.local_walk_plain(d_k, ei, ej, steps), 1,
+            warm=False)
+        ew = max(max_err_u8(w_k, w_p), max_err(u_k, u_p))
+        best = bd_k.cpu().numpy()
+        print(f"[local-kernels] {name}: K9d err {ed} {msd:.3f} ms (plain "
+              f"{pmsd:.1f} ms); K9s err {es} {mss:.3f} ms (plain "
+              f"{pmss:.1f} ms); K9w err {ew} steps {int(u_k[0])} "
+              f"{msw:.3f} ms (plain {pmsw:.1f} ms); zero-score pairs "
+              f"{int((best[:, 0] <= 0).sum())}", flush=True)
+        if ed or es or ew:
+            raise RuntimeError(f"a local kernel disagrees with its plain "
+                               f"version on {name}: K9d {ed} K9s {es} K9w "
+                               f"{ew}")
+        if not big and best[3].tolist() != [0.0, 0.0, 0.0]:
+            raise RuntimeError(f"all-mismatch pair's best {best[3]}")
+        cells = float((la.astype(np.int64) * lb).sum())
+        ins = nbytes(*args)
+        taken = int((w_k != 0).sum())  # one dirs byte read per step
+        bounds = {"K9d": bound(SW_DIRS_OPS * cells, ins + nbytes(d_k, bd_k)),
+                  "K9s": bound(SW_OPS * cells, ins + nbytes(bs_k)),
+                  "K9w": bound(0, taken + nbytes(ei, ej, w_k, u_k))}
+        for key, err, ms, pms in (("K9d", ed, msd, pmsd),
+                                  ("K9s", es, mss, pmss),
+                                  ("K9w", ew, msw, pmsw)):
+            rep = report[key]
+            rep["max_abs_err"] = max(rep["max_abs_err"], err)
+            if big:
+                rep["ms"], rep["plain_ms"] = ms, pms
+                rep["bound_ms"], rep["bound_by"] = bounds[key]
+        if big:
+            print(f"[local-kernels] {name}: K9d {cells / msd / 1e6:.1f} "
+                  f"GCUPS, K9s {cells / mss / 1e6:.1f} GCUPS; bounds "
+                  f"{ {k: round(v[0], 4) for k, v in bounds.items()} } ms",
+                  flush=True)
+        del d_k, d_p
+        torch.cuda.empty_cache()
+
+
+def phase_local_main(data, out):
+    """The local path alone, for the launch window: ``align_batch`` on
+    all of ``data`` (one warm-up, 3 timed runs) and ``score_batch``."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.models.local import (
+        LocalBatchAligner,
+    )
+
+    al = LocalBatchAligner()
+    al.align_batch(data)  # warm-up
+    walls, phases = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = al.align_batch(data)
+        walls.append(time.perf_counter() - t0)
+        phases.append(dict(al.last_phases))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = al.score_batch(data)
+    t_score = time.perf_counter() - t0
+    out.update(res=res, walls=walls, phases=phases, chunks=al.last_chunks,
+               scores=scores, t_score=t_score)
+
+
+def check_local(data, out):
+    """Gates of the local path; a run that fails one reports no speed."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.models.local_oracle import (
+        LOCAL_PARAMS,
+    )
+    from cse305_parallel_sequence_alignment_torch.native import walker
+    from cse305_parallel_sequence_alignment_torch.ops.cigar import (
+        cigar_consumed,
+    )
+    from cse305_parallel_sequence_alignment_torch.ops.device_walk import (
+        local_walk_plain,
+    )
+    from cse305_parallel_sequence_alignment_torch.ops.local import (
+        sw_fill_plain,
+    )
+
+    res = out["res"]
+    scores, ei, ej = out["scores"]
+    if not (np.array_equal(scores, [r.score for r in res])
+            and np.array_equal(ei, [r.end_a for r in res])
+            and np.array_equal(ej, [r.end_b for r in res])):
+        raise RuntimeError("score_batch disagrees with align_batch")
+    for k, ((a, b), r) in enumerate(zip(data, res)):
+        if local_rescore(a, b, r.chain, LOCAL_PARAMS) != r.score:
+            raise RuntimeError(f"pair {k}: chain re-scores to "
+                               f"{local_rescore(a, b, r.chain, LOCAL_PARAMS)}"
+                               f", score {r.score}")
+        span = ((r.end_a - r.start_a + 1, r.end_b - r.start_b + 1)
+                if r.chain else (0, 0))
+        if cigar_consumed(r.cigar) != span or \
+                cigar_consumed(r.cigar_extended) != span:
+            raise RuntimeError(f"pair {k}: CIGAR {r.cigar} does not consume "
+                               f"its spans {span}")
+    # the first 64 pairs through the plain versions on the card
+    dev = torch.device("cuda")
+    a, b, la, lb = local_bucket(data[:64])
+    best, dirs = sw_fill_plain(*[torch.from_numpy(x).to(dev)
+                                 for x in (a, b, la, lb)], LOCAL_PARAMS,
+                               want_dirs=True)
+    pi = best[:, 1].to(torch.int32)
+    pj = best[:, 2].to(torch.int32)
+    ops, used = local_walk_plain(dirs, pi, pj, int(la.max()) + int(lb.max()))
+    del dirs
+    best = best.cpu().numpy()
+    tt, ii, jj, lens, _, _, cig, ext = walker.local_build(
+        ops.cpu().numpy()[: int(used[0])].T, best[:, 1].astype(np.int64),
+        best[:, 2].astype(np.int64), a, b)
+    for r in range(len(lens)):
+        L = int(lens[r])
+        want = (float(best[r, 0]), int(best[r, 1]), int(best[r, 2]),
+                list(zip(ii[r, :L].tolist(), jj[r, :L].tolist(),
+                         tt[r, :L].tolist())),
+                cig[r], ext[r])
+        got = res[r]
+        if want != (got.score, got.end_a, got.end_b, list(got.chain),
+                    got.cigar, got.cigar_extended):
+            raise RuntimeError(f"pair {r}: align_batch differs from the "
+                               f"plain versions on the card")
+    torch.cuda.empty_cache()
+    walls, phases = out["walls"], out["phases"]
+    med = sorted(range(3), key=lambda k: walls[k])[1]
+    cells = float(sum(len(x) * len(y) for x, y in data))
+    split = ", ".join(f"{k} {v:.2f}" for k, v in phases[med].items())
+    lens = np.array([len(r.chain) for r in res])
+    print(f"[local] align_batch {len(data)} x 2 kb (BASELINE config 3): "
+          f"walls {[round(w * 1e3, 2) for w in walls]} ms, "
+          f"{len(data) / walls[med]:.1f} pairs/s, "
+          f"{cells / walls[med] / 1e9:.1f} cell GCUPS (median run); phases "
+          f"{split}; {out['chunks']} chunks under dirs_budget; score_batch "
+          f"{out['t_score'] * 1e3:.2f} ms, "
+          f"{cells / out['t_score'] / 1e9:.1f} GCUPS", flush=True)
+    print(f"[local] gates held: score_batch = align_batch, {len(res)} chains "
+          f"re-score to their scores, CIGARs consume their spans, first 64 "
+          f"pairs = plain versions on the card; chain length mean "
+          f"{lens.mean():.1f} (even pairs {lens[0::2].mean():.1f}, odd "
+          f"{lens[1::2].mean():.1f}), max {lens.max()}; mean score "
+          f"{float(np.mean(scores)):.3f}", flush=True)
+
 
 def main():
     import torch
@@ -605,6 +916,7 @@ def main():
     from cse305_parallel_sequence_alignment_torch.ops import (
         _build,
         device_walk,
+        local,
         longrow,
         longstair,
         rowcb,
@@ -650,9 +962,24 @@ def main():
                    replaces="cse305_parallel_sequence_alignment_tpu/ops/"
                             "pallas_longstair.py:81",
                    fn=longstair.stair_lastrow_device),
+        "K9s": dict(name="sw_score (K9s local score fill)", route="cuda",
+                    source=f"{src}/local.cu",
+                    replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                             "pallas_local.py:118",
+                    fn=local.sw_score),
+        "K9d": dict(name="sw_dirs (K9d local dirs fill)", route="cuda",
+                    source=f"{src}/local.cu",
+                    replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                             "pallas_local.py:209",
+                    fn=local.sw_dirs),
+        "K9w": dict(name="local_walk (K9w local walk)", route="cuda",
+                    source=f"{src}/local.cu",
+                    replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                             "device_walk.py:35",
+                    fn=device_walk.local_walk),
     }
     for rep in report.values():
-        # no single PyTorch call computes a Gotoh fill or walk
+        # no single PyTorch call computes a Gotoh or SW fill or walk
         rep.update(max_abs_err=0.0, launches=0, library_ms=None)
     phase_kernels(report)
     phase_long_kernels(report)
@@ -679,6 +1006,12 @@ def main():
              ("K1", "K2", "K6", "K7"))
     check_partition(runs)
     phase_long_main(report, runs)
+    data = local_data()
+    phase_local_kernels(report, data)
+    local_out = {}
+    run_path("local", lambda: phase_local_main(data, local_out),
+             ("K9s", "K9d", "K9w"))
+    check_local(data, local_out)
     phase_cli()
 
     print(json.dumps({"kernels": [

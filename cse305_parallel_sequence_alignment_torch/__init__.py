@@ -2,14 +2,16 @@
 
 A second package beside ``cse305_parallel_sequence_alignment_tpu`` (the
 JAX reference, which it never imports). The ported slices are global
-Gotoh alignment of many pairs and the balanced partition of one long
-pair, on an NVIDIA H100:
+Gotoh alignment of many pairs, the balanced partition of one long pair
+and local (Smith-Waterman) alignment of many pairs, on an NVIDIA H100:
 
 - ``core``      scoring parameters, boundary semantics, codec, results
 - ``ops``       CUDA kernels (``csrc/``) with their plain PyTorch
                 versions: K1 dirs16+runs fill, K3 score fill, K2
-                run-length walk, K6 long fill, K7 single-job last row
-- ``models``    ``BatchAligner`` (global mode) and ``GotohAligner``
+                run-length walk, K6 long fill, K7 single-job last row,
+                K9s/K9d local fills, K9w local walk
+- ``models``    ``BatchAligner`` (global mode), ``GotohAligner`` and
+                ``LocalBatchAligner`` (local mode, CIGARs)
 - ``parallel``  ``PartitionedAligner`` (balanced partition)
 - ``native``    host replay and render (built from ``csrc/tsalib.cpp``)
 - ``utils``     run configuration, FASTA input
@@ -43,5 +45,14 @@ __all__ = [
     "align",
     "align_pairs",
     "score_pairs",
+    "LocalBatchAligner",
+    "LocalAlignmentResult",
     "__version__",
 ]
+
+
+def __getattr__(name):
+    if name in ("LocalBatchAligner", "LocalAlignmentResult"):
+        from cse305_parallel_sequence_alignment_torch.models import local
+        return getattr(local, name)
+    raise AttributeError(name)

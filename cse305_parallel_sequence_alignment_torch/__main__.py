@@ -4,6 +4,7 @@ The ported subcommands of the JAX package's CLI, with its flags and
 output format, plus ``--device`` ("cuda" by default):
 
   align      one global alignment (prints the reference's two-row format)
+  local      one local (SW) alignment with CIGAR (prints JSON)
   batch      score/align many pairs from a FASTA file
   partition  balanced-partition alignment of one long pair
   longscore  score of one long pair through the long fill (K6)
@@ -60,6 +61,27 @@ def cmd_align(args):
     if args.verbose:
         print(f"score={res.score} end_table={res.end_table} "
               f"time={dt:.4f}s", file=sys.stderr)
+    return 0
+
+
+def cmd_local(args):
+    cfg = config_from_args(args)
+    a, b = _resolve_pair(args, cfg)
+    from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+    from cse305_parallel_sequence_alignment_torch.models.local import (
+        LocalBatchAligner,
+    )
+    params = ScoringParams(g=cfg.g, h=cfg.h, match=args.sw_match,
+                           mismatch=args.sw_mismatch)
+    res = LocalBatchAligner(params=params,
+                            device=args.device).align_batch([(a, b)])[0]
+    print(json.dumps({
+        "score": res.score,
+        "cigar": res.cigar,
+        "cigar_extended": res.cigar_extended,
+        "query_span": [res.start_a, res.end_a],
+        "target_span": [res.start_b, res.end_b],
+    }))
     return 0
 
 
@@ -223,6 +245,14 @@ def main(argv=None):
     add_config_args(p)
     _add_device_arg(p)
     p.set_defaults(fn=cmd_align)
+
+    p = sub.add_parser("local", help="one local (SW) alignment with CIGAR")
+    _add_pair_args(p)
+    p.add_argument("--sw-match", type=float, default=2.0)
+    p.add_argument("--sw-mismatch", type=float, default=-1.0)
+    add_config_args(p)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_local)
 
     p = sub.add_parser("batch", help="score/align many dataset pairs")
     p.add_argument("--count", type=int, default=100)

@@ -1,15 +1,18 @@
-"""Convenience API, global and partitioned modes (the slices of the JAX
-package's ``api`` that are ported so far):
+"""Convenience API, global, local and partitioned modes (the slices of the
+JAX package's ``api`` that are ported so far):
 
     align(a, b)                           # one global alignment
+    align(a, b, mode="local")             # SW + CIGAR
     align(a, b, mode="partitioned", p=8)  # long-pair decomposition
-    align_pairs(pairs)                    # batched full alignments
-    score_pairs(pairs)                    # batched scores: (scores, end_tables)
+    align_pairs(pairs, mode=...)          # batched full alignments
+    score_pairs(pairs, mode=...)          # batched scores
 
 Every call takes ``device`` ("cuda" by default) and the keyword
-arguments of its aligner (``BatchAligner``, or ``PartitionedAligner``
-for "partitioned"). The other modes raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+arguments of its aligner (``BatchAligner``, ``LocalBatchAligner``, or
+``PartitionedAligner`` for "partitioned"). Local mode scores with
+``LOCAL_PARAMS`` unless ``params`` is given, as the JAX package does.
+The other modes raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -19,7 +22,6 @@ from cse305_parallel_sequence_alignment_torch.core import ScoringParams
 _MODES = ("global", "local", "semiglobal", "overlap", "banded",
           "partitioned")
 _LATER = {
-    "local": "queue 1 item 10 (kernel K9)",
     "semiglobal": "queue 1 item 11 (kernel K10)",
     "overlap": "queue 1 item 11 (kernel K11)",
     "banded": "queue 1 item 12 (kernel K12)",
@@ -31,9 +33,15 @@ def _aligner(mode, params, **kw):
         raise ValueError(f"unknown mode {mode!r}; pick from {_MODES}")
     if mode == "partitioned":
         raise ValueError("mode 'partitioned' is not batchable; use align()")
-    if mode != "global":
+    if mode in _LATER:
         raise NotImplementedError(
             f"mode {mode!r} is not ported yet: ROADMAP {_LATER[mode]}")
+    if mode == "local":
+        from cse305_parallel_sequence_alignment_torch.models.local import (
+            LOCAL_PARAMS,
+            LocalBatchAligner,
+        )
+        return LocalBatchAligner(params=params or LOCAL_PARAMS, **kw)
     from cse305_parallel_sequence_alignment_torch.models.batch import (
         BatchAligner,
     )
@@ -41,7 +49,8 @@ def _aligner(mode, params, **kw):
 
 
 def align(a, b, mode="global", params=None, p=None, **kw):
-    """One pairwise alignment; returns an ``AlignmentResult``."""
+    """One pairwise alignment; returns an ``AlignmentResult`` (a
+    ``LocalAlignmentResult`` in local mode)."""
     if mode == "partitioned":
         from cse305_parallel_sequence_alignment_torch.parallel.partition \
             import PartitionedAligner
@@ -56,5 +65,6 @@ def align_pairs(pairs, mode="global", params=None, **kw):
 
 
 def score_pairs(pairs, mode="global", params=None, **kw):
-    """Batched scores: (scores, end_tables)."""
+    """Batched scores: the mode's ``score_batch`` tuple, (scores,
+    end_tables) in global mode, (scores, end_i, end_j) in local mode."""
     return _aligner(mode, params, **kw).score_batch(pairs)

@@ -1,7 +1,8 @@
 // Native host runtime: the port's own copy of the JAX package's
 // native/tsalib.cpp (the port builds this file, ops/_build.py
 // host_library, and reads nothing of the other package). The port calls
-// tsa_replay_rle_batch and tsa_render (native/walker.py).
+// tsa_replay_rle_batch, tsa_render and its own tsa_local_build
+// (native/walker.py).
 //
 // The device does the O(m*n) fill; these routines cover the
 // inherently sequential / IO-bound host side, mirroring the roles the
@@ -305,6 +306,105 @@ int tsa_walk_batch(const uint8_t* dirs, int64_t stride_r, int64_t stride_d,
             walk_one_pair(dirs, stride_r, stride_d, stride_j, ms[r],
                           ns[r], t0s[r], layout, mode, cap, out_t, out_i,
                           out_j, out_len, r);
+        }
+    };
+    if (nthreads <= 1) {
+        worker(0);
+    } else {
+        std::vector<std::thread> pool;
+        for (int64_t w = 0; w < nthreads; w++) pool.emplace_back(worker, w);
+        for (auto& th : pool) th.join();
+    }
+    return 0;
+}
+
+// Append "<len><op>" to out; returns the bytes written (at most 2 * len).
+static int64_t put_run(char* out, int64_t len, char op) {
+    char digits[24];
+    int nd = 0;
+    do { digits[nd++] = (char)('0' + len % 10); len /= 10; } while (len);
+    for (int k = 0; k < nd; k++) out[k] = digits[nd - 1 - k];
+    out[nd] = op;
+    return nd + 1;
+}
+
+// One pair of tsa_local_build.
+static void local_one(const uint8_t* op, int64_t L, int64_t ei, int64_t ej,
+                      const uint8_t* a, const uint8_t* b, int64_t cap,
+                      int32_t* out_t, int64_t* out_i, int64_t* out_j,
+                      int64_t* len_out, int64_t* sa, int64_t* sb,
+                      char* cig, int64_t* cig_len, char* ext,
+                      int64_t* ext_len) {
+    int64_t K = 0;
+    while (K < L && op[K]) K++;
+    // point k from the end sits at (i, j); it moves by its own table
+    int64_t i = ei, j = ej;
+    for (int64_t k = 0; k < K; k++) {
+        const int t = op[k];
+        const int64_t q = K - 1 - k;  // chain order: start -> end
+        out_t[q] = t;
+        out_i[q] = t == 2 ? 0 : i;
+        out_j[q] = t == 3 ? 0 : j;
+        if (t != 2) i--;
+        if (t != 3) j--;
+    }
+    *len_out = K;
+    *sa = *sb = 0;
+    for (int64_t q = 0; q < K; q++)
+        if (out_t[q] != 2) { *sa = out_i[q]; break; }
+    for (int64_t q = 0; q < K; q++)
+        if (out_t[q] != 3) { *sb = out_j[q]; break; }
+    // run-length strings; each run of r points takes at most 2r bytes
+    static const char kOp[4] = {'?', 'M', 'D', 'I'};
+    int64_t nc = 0, ne = 0, rc = 0, re = 0;
+    char pc = 0, pe = 0;
+    for (int64_t q = 0; q < K; q++) {
+        const int t = out_t[q];
+        const char c = kOp[t];
+        const char e = t != 1 ? c
+                              : (a[out_i[q] - 1] == b[out_j[q] - 1] ? '=' : 'X');
+        if (c == pc) { rc++; } else {
+            if (rc) nc += put_run(cig + nc, rc, pc);
+            pc = c; rc = 1;
+        }
+        if (e == pe) { re++; } else {
+            if (re) ne += put_run(ext + ne, re, pe);
+            pe = e; re = 1;
+        }
+    }
+    if (rc) nc += put_run(cig + nc, rc, pc);
+    if (re) ne += put_run(ext + ne, re, pe);
+    *cig_len = nc;
+    *ext_len = ne;
+}
+
+// Local-mode chains, spans and CIGARs from the local walk's table streams
+// (ops/device_walk.py local_walk, rows transposed: ops[r * L + k] = the
+// table, 1-3, of pair r's k-th chain point counted from its end cell
+// (ei[r], ej[r]), 0 past the chain). Writes pair r's chain in start->end
+// order to out_t/out_i/out_j[r * cap ...] (gap points store 0 for the
+// gapped side, as walk_local_batch_device builds them), its length to
+// out_len[r], the first A and B positions it consumes to out_sa/out_sb,
+// and its CIGAR (M/I/D) and extended CIGAR (=/X/I/D) to
+// cig/ext[r * scap ...], lengths in cig_len/ext_len: the strings of
+// ops/cigar.py chain_to_cigar(_extended). a/b: the bucket's (B, m) /
+// (B, n) codes. cap >= L and scap >= 2 L.
+int tsa_local_build(const uint8_t* ops, int64_t L, const int64_t* ei,
+                    const int64_t* ej, const uint8_t* a, int64_t m,
+                    const uint8_t* b, int64_t n, int64_t B, int64_t cap,
+                    int32_t* out_t, int64_t* out_i, int64_t* out_j,
+                    int64_t* out_len, int64_t* out_sa, int64_t* out_sb,
+                    int64_t scap, char* cig, int64_t* cig_len, char* ext,
+                    int64_t* ext_len) {
+    int64_t nthreads = std::min<int64_t>(
+        B, std::max(1u, std::thread::hardware_concurrency()));
+    auto worker = [&](int64_t w) {
+        for (int64_t r = w; r < B; r += nthreads) {
+            local_one(ops + r * L, L, ei[r], ej[r], a + r * m, b + r * n,
+                      cap, out_t + r * cap, out_i + r * cap,
+                      out_j + r * cap, out_len + r, out_sa + r, out_sb + r,
+                      cig + r * scap, cig_len + r, ext + r * scap,
+                      ext_len + r);
         }
     };
     if (nthreads <= 1) {

@@ -1,5 +1,6 @@
-"""Aligner families ported so far: the bucketed global ``BatchAligner``
-and the single-pair ``GotohAligner``."""
+"""Aligner families ported so far: the bucketed global ``BatchAligner``,
+the single-pair ``GotohAligner`` and the bucketed local
+``LocalBatchAligner``."""
 
 
 def __getattr__(name):
@@ -13,7 +14,11 @@ def __getattr__(name):
             GotohAligner,
         )
         return GotohAligner
+    if name in ("LocalBatchAligner", "LocalAlignmentResult"):
+        from cse305_parallel_sequence_alignment_torch.models import local
+        return getattr(local, name)
     raise AttributeError(name)
 
 
-__all__ = ["BatchAligner", "GotohAligner"]
+__all__ = ["BatchAligner", "GotohAligner", "LocalBatchAligner",
+           "LocalAlignmentResult"]

@@ -48,6 +48,33 @@ def _encode_many(seqs):
             np.asarray(s, np.uint8) for s in seqs]
 
 
+def _buckets(enc_a, enc_b, quantum):
+    """Pair indices by padded shape, each axis rounded up to ``quantum``."""
+    buckets = {}
+    for k, (ea, eb) in enumerate(zip(enc_a, enc_b)):
+        key = (_round_up(ea.shape[0], quantum),
+               _round_up(eb.shape[0], quantum))
+        buckets.setdefault(key, []).append(k)
+    return buckets
+
+
+def _bucket_arrays(enc_a, enc_b, idxs, key):
+    """(a, b, la, lb) of the pairs ``idxs``, padded to the bucket shape
+    ``key`` with PAD_A / PAD_B."""
+    bm, bn = key
+    B = len(idxs)
+    a = np.full((B, bm), PAD_A, np.uint8)
+    b = np.full((B, bn), PAD_B, np.uint8)
+    la = np.zeros((B,), np.int32)
+    lb = np.zeros((B,), np.int32)
+    for r, k in enumerate(idxs):
+        la[r] = enc_a[k].shape[0]
+        lb[r] = enc_b[k].shape[0]
+        a[r, : la[r]] = enc_a[k]
+        b[r, : lb[r]] = enc_b[k]
+    return a, b, la, lb
+
+
 def _end_choice(fin, en, h):
     """End-table choice from the finals (B, 3) with per-pair end types
     ``en``: forced for en > 0, else argmax with tie order T1 >= T2 >= T3
@@ -143,26 +170,7 @@ class BatchAligner:
             for k in range(len(pairs)):
                 if enc_a[k].shape[0] > enc_b[k].shape[0]:
                     enc_a[k], enc_b[k] = enc_b[k], enc_a[k]
-        buckets = {}
-        for k, (ea, eb) in enumerate(zip(enc_a, enc_b)):
-            key = (_round_up(ea.shape[0], self.bucket_quantum),
-                   _round_up(eb.shape[0], self.bucket_quantum))
-            buckets.setdefault(key, []).append(k)
-        return enc_a, enc_b, buckets
-
-    def _bucket_arrays(self, enc_a, enc_b, idxs, key):
-        bm, bn = key
-        B = len(idxs)
-        a = np.full((B, bm), PAD_A, np.uint8)
-        b = np.full((B, bn), PAD_B, np.uint8)
-        la = np.zeros((B,), np.int32)
-        lb = np.zeros((B,), np.int32)
-        for r, k in enumerate(idxs):
-            la[r] = enc_a[k].shape[0]
-            lb[r] = enc_b[k].shape[0]
-            a[r, : la[r]] = enc_a[k]
-            b[r, : lb[r]] = enc_b[k]
-        return a, b, la, lb
+        return enc_a, enc_b, _buckets(enc_a, enc_b, self.bucket_quantum)
 
     def _to_dev(self, *arrays):
         return [torch.from_numpy(x).to(self._dev) for x in arrays]
@@ -179,7 +187,7 @@ class BatchAligner:
                 else score_fill
             for s in range(0, len(idxs), self.max_batch):
                 chunk = idxs[s: s + self.max_batch]
-                a, b, la, lb = self._bucket_arrays(enc_a, enc_b, chunk, key)
+                a, b, la, lb = _bucket_arrays(enc_a, enc_b, chunk, key)
                 st = np.full(len(chunk), self.start_type, np.int32)
                 en = np.full(len(chunk), self.end_type, np.int32)
                 t_a, t_b, t_la, t_lb, t_st, t_en = self._to_dev(
@@ -222,7 +230,7 @@ class BatchAligner:
                 step = -(-len(idxs) // nchunks)
             for s in range(0, len(idxs), step):
                 chunk = idxs[s: s + step]
-                a, b, la, lb = self._bucket_arrays(enc_a, enc_b, chunk, key)
+                a, b, la, lb = _bucket_arrays(enc_a, enc_b, chunk, key)
                 st = np.full(len(chunk), self.start_type, np.int32)
                 en = np.full(len(chunk), self.end_type, np.int32)
                 if start_types is not None:

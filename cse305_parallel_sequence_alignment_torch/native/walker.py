@@ -1,4 +1,5 @@
-"""ctypes bindings for the host replay and render (``tsalib.cpp``).
+"""ctypes bindings for the host replay, render and local build
+(``tsalib.cpp``).
 
 The library is compiled from the port's ``csrc/tsalib.cpp`` (a copy of
 the reference package's ``native/tsalib.cpp``) into the port's own
@@ -29,7 +30,47 @@ def _lib():
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
         ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p]
+    lib.tsa_local_build.restype = ctypes.c_int
+    lib.tsa_local_build.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64] + [ctypes.c_void_p] * 6 + [
+        ctypes.c_int64] + [ctypes.c_void_p] * 4
     return lib
+
+
+def local_build(ops, end_i, end_j, a, b):
+    """Thread-parallel build of local chains, spans and CIGARs from the
+    local walk's table streams (``ops`` (B, L): pair r's tables from its
+    end cell back, 0 past the chain); ``a``/``b`` are the bucket's
+    codes. Pair r's chain is ``(ii[r, k], jj[r, k], tt[r, k])`` for k <
+    lens[r], start->end, with 0 for a gap's gapped side: the chains of
+    the JAX package's ``walk_local_batch_device``, and the strings of
+    ops/cigar.py's ``chain_to_cigar`` and ``chain_to_cigar_extended``.
+    Returns (tt, ii, jj, lens, start_a, start_b, cigars, extended)."""
+    lib = _lib()
+    ops = np.ascontiguousarray(ops, np.uint8)
+    B, L = ops.shape
+    ei = np.ascontiguousarray(end_i, np.int64)
+    ej = np.ascontiguousarray(end_j, np.int64)
+    a = np.ascontiguousarray(a, np.uint8)
+    b = np.ascontiguousarray(b, np.uint8)
+    cap, scap = max(L, 1), 2 * max(L, 1)
+    tt = np.zeros((B, cap), np.int32)
+    ii = np.zeros((B, cap), np.int64)
+    jj = np.zeros((B, cap), np.int64)
+    lens, sa, sb, nc, ne = (np.empty(B, np.int64) for _ in range(5))
+    cig = np.empty((B, scap), np.uint8)
+    ext = np.empty((B, scap), np.uint8)
+    lib.tsa_local_build(
+        ops.ctypes.data, L, ei.ctypes.data, ej.ctypes.data, a.ctypes.data,
+        a.shape[1], b.ctypes.data, b.shape[1], B, cap, tt.ctypes.data,
+        ii.ctypes.data, jj.ctypes.data, lens.ctypes.data, sa.ctypes.data,
+        sb.ctypes.data, scap, cig.ctypes.data, nc.ctypes.data,
+        ext.ctypes.data, ne.ctypes.data)
+    cigars = [cig[r, : nc[r]].tobytes().decode("ascii") for r in range(B)]
+    extended = [ext[r, : ne[r]].tobytes().decode("ascii") for r in range(B)]
+    return tt, ii, jj, lens, sa, sb, cigars, extended
 
 
 def replay_rle(entries, la, lb, t0s, mode, offsets=None, chunk=None):

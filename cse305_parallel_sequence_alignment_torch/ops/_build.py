@@ -28,7 +28,7 @@ PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 TSALIB = CSRC / "tsalib.cpp"
-KERNELS = ("rowcb", "walk", "longrow")  # csrc/<name>.cu
+KERNELS = ("rowcb", "walk", "longrow", "local")  # csrc/<name>.cu
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]

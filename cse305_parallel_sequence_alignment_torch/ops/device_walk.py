@@ -12,6 +12,12 @@ of the after-run code; in T2/T3 one step. The kernel is
 package's host replays (same file, :241-263 and :338-439). The main path
 replays with the native library (native/walker.py); these are the test
 references.
+
+``local_walk`` (K9w) is the local-mode walk: the port of ``_walk_core``
+(same file, :35) as ``walk_local_batch_device`` (:442) uses it, over the
+K9d skew dirs ``(m+n+1, B, n+1)`` uint8, with that function's stop rule
+on the card; its kernel is in ``csrc/local.cu``. The native library
+turns its table streams into chains (native/walker.py ``local_build``).
 """
 
 from __future__ import annotations
@@ -116,6 +122,99 @@ def rle_walk(dirs, la, lb, t0, max_rounds):
 
 
 rle_walk.launches = 0
+
+
+def local_walk_plain(dirs, ei, ej, max_steps):
+    """Plain PyTorch K9w: (ops (max_steps, B) uint8, used (1,) int32).
+
+    One gather per step for all pairs; ``ops[k, b]`` is the table (1-3)
+    of pair b's k-th chain point counted from its end cell, 0 past the
+    chain, and ``used`` the longest chain."""
+    nrows, B, ncols = dirs.shape
+    dev = dirs.device
+    bidx = torch.arange(B, device=dev)
+    i, j = ei.to(torch.int64), ej.to(torch.int64)
+    t = torch.ones(B, dtype=torch.int64, device=dev)
+    active = (i > 0) & (j > 0) & (j < ncols) & (i + j < nrows)
+    ops = torch.zeros((max_steps, B), dtype=torch.uint8, device=dev)
+
+    def load(i, j):
+        return dirs[(i + j).clamp(0, nrows - 1), bidx,
+                    j.clamp(0, ncols - 1)].to(torch.int64)
+
+    byte = load(i, j)
+    k = 0
+    while k < max_steps and bool(active.any()):
+        code = (byte >> (2 * (t - 1))) & 3
+        active = active & ~((t == 1) & (code == 3))  # a start: not aligned
+        ops[k] = torch.where(active, t, 0).to(torch.uint8)
+        pi = i - (t != 2).to(torch.int64)
+        pj = j - (t != 3).to(torch.int64)
+        pt = code + 1
+        active = active & (pi > 0) & (pj > 0)  # stop before an edge ...
+        nbyte = load(pi, pj)
+        active = active & ~((pt == 1) & ((nbyte & 3) == 3))  # ... or a start
+        i = torch.where(active, pi, i)
+        j = torch.where(active, pj, j)
+        t = torch.where(active, pt, t)
+        byte = torch.where(active, nbyte, byte)
+        k += 1
+    used = (ops != 0).sum(dim=0).max() if B else torch.zeros((), device=dev)
+    return ops, used.to(torch.int32).reshape(1)
+
+
+@functools.lru_cache(maxsize=None)
+def _local_entry():
+    """ctypes entry point of csrc/local.cu's walk."""
+    fn = _build.cuda_library("local").local_walk
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    return fn
+
+
+def local_walk(dirs, ei, ej, max_steps):
+    """K9w: local walk of every pair from its end cell (ei, ej) in T1
+    over the K9d skew dirs ``(m+n+1, B, n+1)`` uint8.
+
+    Returns (ops (max_steps, B) uint8, used (1,) int32) on the dirs'
+    device, nothing synchronised: ``ops[k, b]`` is the table (1-3) of the
+    k-th chain point from the end, 0 past the chain. The walk stops as
+    ``walk_local_batch_device`` of the JAX package does: on a start code,
+    or before a predecessor on row 0 / column 0 or a start cell."""
+    if dirs.dtype != torch.uint8 or dirs.dim() != 3:
+        raise TypeError("dirs must be a (m+n+1, B, n+1) uint8 tensor")
+    B = dirs.shape[1]
+    for name, v in (("ei", ei), ("ej", ej)):
+        if v.dtype != torch.int32 or tuple(v.shape) != (B,):
+            raise ValueError(f"{name} must be ({B},) int32, got "
+                             f"{tuple(v.shape)} {v.dtype}")
+    for v in (dirs, ei, ej):
+        if v.device != dirs.device:
+            raise ValueError("all inputs must be on one device")
+        if not v.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+    if max_steps < 1:
+        raise ValueError("max_steps must be >= 1")
+    if dirs.device.type == "cpu":
+        return local_walk_plain(dirs, ei, ej, max_steps)
+    if dirs.device.type != "cuda":
+        raise ValueError(f"unsupported device {dirs.device}")
+    nrows, B, ncols = dirs.shape
+    dev = dirs.device
+    ops = torch.zeros((max_steps, B), dtype=torch.uint8, device=dev)
+    used = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _local_entry()(dirs.data_ptr(), ei.data_ptr(), ej.data_ptr(),
+                             ops.data_ptr(), used.data_ptr(), B, nrows,
+                             ncols, max_steps,
+                             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "local_walk")
+    local_walk.launches += 1
+    return ops, used
+
+
+local_walk.launches = 0
 
 
 def expand_rle_ops(entries, max_steps):

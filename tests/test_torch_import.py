@@ -21,14 +21,17 @@ import cse305_parallel_sequence_alignment_torch as port
 import cse305_parallel_sequence_alignment_torch.__main__
 from cse305_parallel_sequence_alignment_torch import api, models
 from cse305_parallel_sequence_alignment_torch.models import (
-    BatchAligner, GotohAligner)
+    BatchAligner, GotohAligner, LocalAlignmentResult, LocalBatchAligner)
+from cse305_parallel_sequence_alignment_torch.models import local_oracle
 from cse305_parallel_sequence_alignment_torch.ops import (
-    _build, device_walk, longrow, longstair, rowcb)
+    _build, cigar, device_walk, local, longrow, longstair, rowcb, traceback)
 from cse305_parallel_sequence_alignment_torch.parallel import partition
 from cse305_parallel_sequence_alignment_torch.native import walker
 from cse305_parallel_sequence_alignment_torch.utils import config, fasta
 res = port.align("AGGA", "AGTGC", device="cpu")
 assert (res.aligned_a, res.aligned_b) == ("AG-GA", "AGTGC")
+loc = port.align("GGACGTAC", "TTACGTAT", mode="local", device="cpu")
+assert (loc.score, loc.cigar) == (10.0, "5M")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",
                  "cse305_parallel_sequence_alignment_tpu")))
