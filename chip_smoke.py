@@ -5,17 +5,19 @@
 
 Builds the port's kernels from ``cse305_parallel_sequence_alignment_torch/
 csrc`` (one compiler process per source, all at once) and drives its
-three main paths, global full alignment of many pairs, the balanced
-partition of one long pair and local (Smith-Waterman) alignment of many
-pairs:
+five main paths, global full alignment of many pairs, the balanced
+partition of one long pair, local (Smith-Waterman), semi-global and
+overlap alignment of many pairs:
 
 1. card, torch and CUDA versions; the kernels' build time;
 2. each kernel against its plain PyTorch version on the card, bit for
-   bit, both timed with CUDA events: K1 dirs16+runs fill, K3 score fill
-   and K2 run-length walk on 8 ragged pairs up to 2 kb with every start
-   type, on rows too wide for shared memory, and on 256 x 2 kb; K6 long
-   fill on 8 jobs of 3-5 k x 17-20 k with mixed start types, finals and
-   last rows; K7 on one 6,000 x 20,000 job for 3 start types;
+   bit, both timed with CUDA events: K1 dirs16+runs fill, K3
+   anti-diagonal score fill and K2 run-length walk on 8 ragged pairs up
+   to 2 kb with every start type, on rows too wide for shared memory,
+   and on 256 x 2 kb; K1 and K3 again at g=0.3, h=1.7 (the
+   ``[numerics]`` line); K6 long fill on 8 jobs of 3-5 k x 17-20 k with
+   mixed start types, finals and last rows; K7 on one 6,000 x 20,000 job
+   for 3 start types;
 3. the golden cases (tests/golden/cases.jsonl) through
    ``BatchAligner(device="cuda")``: 34 pipeline rows byte-equal, 152
    subproblem chains and finals equal;
@@ -45,8 +47,27 @@ pairs:
    ``score_batch`` = ``align_batch``, chains re-scoring to their scores,
    CIGARs consuming their spans, and the first 64 pairs equal to the
    plain versions' results on the card;
-9. the CLI ``align``, ``partition`` and ``local`` in subprocesses;
-10. every kernel of each path launched in step 4, 5 or 8.
+9. K10s/K10d semi-global and K11s/K11d overlap fills against their plain
+   versions, bit for bit, at the default and a non-dyadic parameter set,
+   on ragged pairs with an empty side, m > n and 1,100 columns; then
+   timed at the main paths' chunk shapes;
+10. the semi-global path, counters set to 0 again:
+    ``SemiGlobalBatchAligner.align_batch`` on 16,384 reads of 250 nt
+    each in a 1,024-nt reference window (seed 23; three of four reads
+    are taken from their window at a random offset with 1% substitutions
+    and 0.2% single-base indels, the fourth is random), one warm-up and
+    3 timed runs, and ``score_batch``; gates outside the window:
+    ``score_batch`` = ``align_batch`` (score, table, end column), chains
+    re-scoring to their scores, CIGARs consuming the whole read, the
+    first 64 pairs equal to the plain versions' results on the card;
+11. the overlap path likewise: ``OverlapBatchAligner`` on 4,096 pairs of
+    2,000 nt (seed 29; a quarter put a suffix of A on a prefix of B over
+    500-1,500 nt with 2% edits, a quarter a prefix of A on a suffix of
+    B, half are unrelated); gates as step 10, with every end on the last
+    row or the last column;
+12. the CLI ``align``, ``partition``, ``local``, ``semiglobal`` and
+    ``overlap`` in subprocesses;
+13. every kernel of each path launched in step 4, 5, 8, 10 or 11.
 
 Prints a JSON line of the kernels (times, bounds, launches), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Any
@@ -73,9 +94,9 @@ ACGT = np.frombuffer(b"ACGT", np.uint8)
 # cores, and HBM3
 FP32_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
-# float operations and compares per DP cell, counted from csrc/: the score
-# sweep (K3, K6, K7: 14 in pass 1, 3 in pass 2) and K1 (the sweep plus
-# the three argmax3 of the direction codes)
+# float operations and compares per DP cell, counted from csrc/: the row
+# score sweep (K6, K7: 14 in pass 1, 3 in pass 2) and the dirs sweeps (K1,
+# K10d, K11d: the sweep plus the three argmax3 of the direction codes)
 SWEEP_OPS = 17
 DIRS_OPS = 29
 # per interior cell of csrc/local.cu: K9s 16 (max3 + add + clamp, two
@@ -83,6 +104,10 @@ DIRS_OPS = 29
 # (plus the start test and three argmax3)
 SW_OPS = 16
 SW_DIRS_OPS = 26
+# per interior cell of csrc/diag.cu (K3, K10s, K11s): the base compare,
+# max3 + add, and two gap maxima of a max, two subtractions and a max
+DIAG_OPS = 12
+NON_DYADIC = dict(g=0.3, h=1.7, match=1.0, mismatch=-0.7)
 
 
 def bound(ops, nbytes):
@@ -201,6 +226,7 @@ def phase_kernels(report):
         e1 = max(max_err(u16(d_k), u16(d_p)), max_err(f_k, f_p))
         s_k, ms3 = timed(
             lambda: rowcb.score_fill(ta, tb_, tla, tlb, tst, params), reps)
+        # K3 is the anti-diagonal sweep of csrc/diag.cu
         s_p, pms3 = timed(
             lambda: rowcb.score_fill_plain(ta, tb_, tla, tlb, tst, params),
             1)
@@ -227,7 +253,7 @@ def phase_kernels(report):
         # K2 reads one dirs cell per round taken
         taken = int((u16(w_k) != 0).sum())
         bounds = {"K1": bound(DIRS_OPS * cells, ins + nbytes(d_k, f_k)),
-                  "K3": bound(SWEEP_OPS * cells, ins + nbytes(s_k)),
+                  "K3": bound(DIAG_OPS * cells, ins + nbytes(s_k)),
                   "K2": bound(0, 2 * taken + nbytes(tla, tlb, t0, w_k,
                                                     u_k))}
         for key, err, ms, pms in (("K1", e1, ms1, pms1),
@@ -240,6 +266,41 @@ def phase_kernels(report):
                 rep["bound_ms"], rep["bound_by"] = bounds[key]
         del d_k, d_p
         torch.cuda.empty_cache()
+
+
+def phase_numerics(report):
+    """K1 and K3 against their plain versions at a non-dyadic parameter
+    set, on the ragged pairs of every start type: the folded gh and the
+    anti-diagonal T2 must give the plain versions' bits on the card."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+    from cse305_parallel_sequence_alignment_torch.ops import longrow, rowcb
+
+    params = ScoringParams(**NON_DYADIC)
+    rng = np.random.default_rng(13)
+    la = np.array([2048, 1, 700, 2048, 1500, 33, 1999, 0], np.int32)
+    lb = np.array([2048, 2000, 1100, 5, 1501, 2048, 2047, 9], np.int32)
+    st = np.array([-1, -2, -3, 1, 2, 3, -1, -2], np.int32)
+    a, b = bucket(rng, la, lb, 2048, 2048)
+    args = [torch.from_numpy(x).cuda() for x in (a, b, la, lb, st)]
+    d_k, f_k = rowcb.rowcb_fill(*args, params)
+    d_p, f_p = rowcb.rowcb_fill_plain(*args, params)
+    e1 = max(max_err(u16(d_k), u16(d_p)), max_err(f_k, f_p))
+    e3 = max_err(rowcb.score_fill(*args, params),
+                 rowcb.score_fill_plain(*args, params))
+    e6 = max_err(longrow.long_fill(*args, params),
+                 longrow.long_fill_plain(*args, params))
+    print(f"[numerics] {NON_DYADIC}, 8 ragged pairs up to 2 kb, all six "
+          f"start types: K1 err {e1}, K3 err {e3}, K6 err {e6} (kernel vs "
+          f"plain)", flush=True)
+    if e1 or e3 or e6:
+        raise RuntimeError("a global kernel disagrees with its plain "
+                           "version at non-dyadic parameters")
+    for key, err in (("K1", e1), ("K3", e3), ("K6", e6)):
+        report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
+    del d_k, d_p
+    torch.cuda.empty_cache()
 
 
 def phase_long_kernels(report):
@@ -639,6 +700,31 @@ def phase_cli():
                            f"{out.stdout}\n{out.stderr[-4000:]}")
     print(f"[cli] local --a {a} --b {b} -> {json.dumps(want)}", flush=True)
 
+    from cse305_parallel_sequence_alignment_torch.models.overlap import (
+        OverlapBatchAligner,
+    )
+    from cse305_parallel_sequence_alignment_torch.models.semiglobal import (
+        SemiGlobalBatchAligner,
+    )
+    for cmd, a, b, cls, fields in (
+            ("semiglobal", "ACGTTGCA", "TTTTACGATGCATTTT",
+             SemiGlobalBatchAligner,
+             ("score", "cigar", "cigar_extended", "target_span")),
+            ("overlap", "GGGGGACGTACGT", "ACGTACGTCCCCCC",
+             OverlapBatchAligner, ("score", "cigar", "a_span", "b_span"))):
+        out = subprocess.run(
+            [sys.executable, "-m", PKG, cmd, "--a", a, "--b", b], cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        r = cls().align_batch([(a, b)])[0]
+        want = {f: (list(getattr(r, f)) if f.endswith("span")
+                    else getattr(r, f)) for f in fields}
+        if out.returncode != 0 or \
+                json.loads(out.stdout.splitlines()[-1]) != want:
+            raise RuntimeError(f"CLI {cmd} failed (rc {out.returncode}):\n"
+                               f"{out.stdout}\n{out.stderr[-4000:]}")
+        print(f"[cli] {cmd} --a {a} --b {b} -> {json.dumps(want)}",
+              flush=True)
+
 
 def mutate_core(rng, core, sub, indel):
     """Copy of ``core`` with substitutions at rate ``sub`` (always another
@@ -678,9 +764,10 @@ def local_data(count=4096, L=2048, core=1024, seed=11):
     return pairs
 
 
-def local_rescore(ea, eb, chain, params):
-    """Score of a local chain: its match/mismatch columns, h + g a gap
-    run (a run of one gap table); exact for integer parameters."""
+def chain_rescore(ea, eb, chain, params):
+    """Score of a local, semi-global or overlap chain: its match/mismatch
+    columns, h + g a gap run (a run of one gap table) and g each further
+    gap point; exact for integer parameters."""
     if not len(chain):
         return 0.0
     c = np.asarray(list(chain), np.int64)
@@ -694,9 +781,9 @@ def local_rescore(ea, eb, chain, params):
                  - (gaps - opens.sum()) * params.g)
 
 
-def local_bucket(pairs):
+def code_bucket(pairs):
     """(a, b, la, lb) numpy bucket of code-array pairs, padded to the
-    longest member as the aligner pads."""
+    longest member."""
     la = np.array([len(x) for x, _ in pairs], np.int32)
     lb = np.array([len(y) for _, y in pairs], np.int32)
     a = np.full((len(pairs), max(1, la.max())), 254, np.uint8)
@@ -707,12 +794,37 @@ def local_bucket(pairs):
     return a, b, la, lb
 
 
+def path_chunks(al, pairs):
+    """The first ``align_batch`` chunk and the first ``score_batch``
+    chunk of the largest bucket of ``pairs``, padded to the bucket shape
+    (both axes rounded up to ``bucket_quantum``) and cut as the aligner
+    ``al`` cuts them: two (a, b, la, lb) numpy buckets."""
+    from cse305_parallel_sequence_alignment_torch.models.batch import (
+        _bucket_arrays,
+    )
+
+    enc_a, enc_b, buckets = al._prep(pairs)
+    key, idxs = max(buckets.items(), key=lambda kv: len(kv[1]))
+    step = al.chunk_size(key, len(idxs))
+    return (_bucket_arrays(enc_a, enc_b, idxs[:step], key),
+            _bucket_arrays(enc_a, enc_b, idxs[:al.max_batch], key))
+
+
+def bucket_name(arrays):
+    a, b, _, _ = arrays
+    return f"{a.shape[0]} x {a.shape[1]:,} x {b.shape[1]:,}"
+
+
 def phase_local_kernels(report, data):
     """K9s, K9d and K9w against their plain versions on the card, bit for
-    bit: 8 ragged pairs up to 2 kb, then 256 x 2 kb of the local path's
-    data, timed with CUDA events."""
+    bit: 8 ragged pairs up to 2 kb, then the local path's own chunks
+    (K9d and K9w at an ``align_batch`` chunk, K9s at a ``score_batch``
+    chunk), timed with CUDA events."""
     import torch
 
+    from cse305_parallel_sequence_alignment_torch.models.local import (
+        LocalBatchAligner,
+    )
     from cse305_parallel_sequence_alignment_torch.models.local_oracle import (
         LOCAL_PARAMS,
     )
@@ -741,22 +853,27 @@ def phase_local_kernels(report, data):
         (rnd(37), rnd(900)),
         (rnd(2048), rnd(1999)),
     ]
-    cases = [("ragged 8 x <=2 kb", ragged, False),
-             ("256 x 2 kb (local path data)", data[:256], True)]
+    ragged = code_bucket(ragged)
+    dirs_chunk, score_chunk = path_chunks(LocalBatchAligner(), data)
+    cases = [("ragged 8 x <=2 kb", ragged, ragged, False),
+             (f"local path chunks: K9d/K9w {bucket_name(dirs_chunk)}, K9s "
+              f"{bucket_name(score_chunk)}", dirs_chunk, score_chunk, True)]
     dev = torch.device("cuda")
-    for name, pairs, big in cases:
-        a, b, la, lb = local_bucket(pairs)
-        args = [torch.from_numpy(x).to(dev) for x in (a, b, la, lb)]
+    for name, dbucket, sbucket, big in cases:
+        la, lb = dbucket[2], dbucket[3]
+        args = [torch.from_numpy(x).to(dev) for x in dbucket]
+        sargs = [torch.from_numpy(x).to(dev) for x in sbucket]
         reps = 3 if big else 1
         (bd_k, d_k), msd = timed(lambda: local.sw_dirs(*args, LOCAL_PARAMS),
                                  reps)
         (bd_p, d_p), pmsd = timed(lambda: local.sw_fill_plain(
             *args, LOCAL_PARAMS, want_dirs=True), 1, warm=False)
         ed = max(max_err(bd_k, bd_p), max_err_u8(d_k, d_p))
-        bs_k, mss = timed(lambda: local.sw_score(*args, LOCAL_PARAMS), reps)
+        bs_k, mss = timed(lambda: local.sw_score(*sargs, LOCAL_PARAMS), reps)
         bs_p, pmss = timed(lambda: local.sw_fill_plain(
-            *args, LOCAL_PARAMS, want_dirs=False)[0], 1, warm=False)
-        es = max(max_err(bs_k, bs_p), max_err(bs_k, bd_k))
+            *sargs, LOCAL_PARAMS, want_dirs=False)[0], 1, warm=False)
+        # K9s and K9d agree on the pairs both chunks hold
+        es = max(max_err(bs_k, bs_p), max_err(bs_k[: len(la)], bd_k))
         ei = bd_k[:, 1].to(torch.int32)
         ej = bd_k[:, 2].to(torch.int32)
         steps = int(la.max()) + int(lb.max())
@@ -779,10 +896,11 @@ def phase_local_kernels(report, data):
         if not big and best[3].tolist() != [0.0, 0.0, 0.0]:
             raise RuntimeError(f"all-mismatch pair's best {best[3]}")
         cells = float((la.astype(np.int64) * lb).sum())
-        ins = nbytes(*args)
+        s_cells = float((sbucket[2].astype(np.int64) * sbucket[3]).sum())
         taken = int((w_k != 0).sum())  # one dirs byte read per step
-        bounds = {"K9d": bound(SW_DIRS_OPS * cells, ins + nbytes(d_k, bd_k)),
-                  "K9s": bound(SW_OPS * cells, ins + nbytes(bs_k)),
+        bounds = {"K9d": bound(SW_DIRS_OPS * cells,
+                               nbytes(*args, d_k, bd_k)),
+                  "K9s": bound(SW_OPS * s_cells, nbytes(*sargs, bs_k)),
                   "K9w": bound(0, taken + nbytes(ei, ej, w_k, u_k))}
         for key, err, ms, pms in (("K9d", ed, msd, pmsd),
                                   ("K9s", es, mss, pmss),
@@ -794,10 +912,10 @@ def phase_local_kernels(report, data):
                 rep["bound_ms"], rep["bound_by"] = bounds[key]
         if big:
             print(f"[local-kernels] {name}: K9d {cells / msd / 1e6:.1f} "
-                  f"GCUPS, K9s {cells / mss / 1e6:.1f} GCUPS; bounds "
+                  f"GCUPS, K9s {s_cells / mss / 1e6:.1f} GCUPS; bounds "
                   f"{ {k: round(v[0], 4) for k, v in bounds.items()} } ms",
                   flush=True)
-        del d_k, d_p
+        del d_k, d_p, args, sargs
         torch.cuda.empty_cache()
 
 
@@ -852,9 +970,9 @@ def check_local(data, out):
             and np.array_equal(ej, [r.end_b for r in res])):
         raise RuntimeError("score_batch disagrees with align_batch")
     for k, ((a, b), r) in enumerate(zip(data, res)):
-        if local_rescore(a, b, r.chain, LOCAL_PARAMS) != r.score:
+        if chain_rescore(a, b, r.chain, LOCAL_PARAMS) != r.score:
             raise RuntimeError(f"pair {k}: chain re-scores to "
-                               f"{local_rescore(a, b, r.chain, LOCAL_PARAMS)}"
+                               f"{chain_rescore(a, b, r.chain, LOCAL_PARAMS)}"
                                f", score {r.score}")
         span = ((r.end_a - r.start_a + 1, r.end_b - r.start_b + 1)
                 if r.chain else (0, 0))
@@ -864,7 +982,7 @@ def check_local(data, out):
                                f"its spans {span}")
     # the first 64 pairs through the plain versions on the card
     dev = torch.device("cuda")
-    a, b, la, lb = local_bucket(data[:64])
+    a, b, la, lb = code_bucket(data[:64])
     best, dirs = sw_fill_plain(*[torch.from_numpy(x).to(dev)
                                  for x in (a, b, la, lb)], LOCAL_PARAMS,
                                want_dirs=True)
@@ -908,14 +1026,268 @@ def check_local(data, out):
           f"{float(np.mean(scores)):.3f}", flush=True)
 
 
+def sg_data(count=16384, read=250, window=1024, seed=23):
+    """Reads placed into reference windows: three of every four reads are
+    taken from their window at a random offset, with 1% substitutions
+    and 0.2% single-base indels; the fourth is random (unplaced)."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for k in range(count):
+        b = ACGT[rng.integers(0, 4, window)]
+        if k % 4 == 3:
+            a = ACGT[rng.integers(0, 4, read)]
+        else:
+            o = int(rng.integers(0, window - read - 8))
+            a = mutate_core(rng, b[o: o + read + 8], 0.01, 0.002)[:read]
+        pairs.append((a, b))
+    return pairs
+
+
+def ov_data(count=4096, L=2000, seed=29):
+    """Read pairs: a quarter put a suffix of A on a prefix of B over
+    500-1,500 nt with 2% edits (1.5% substitutions, 0.5% single-base
+    indels), a quarter a prefix of A on a suffix of B, half unrelated."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for k in range(count):
+        a = ACGT[rng.integers(0, 4, L)]
+        b = ACGT[rng.integers(0, 4, L)]
+        n = int(rng.integers(500, 1501))
+        if k % 4 == 0:    # suffix of A, then B's own tail
+            core = mutate_core(rng, a[L - n:], 0.015, 0.005)
+            b = np.concatenate([core, b])[:L]
+        elif k % 4 == 1:  # B's own head, then a prefix of A
+            core = mutate_core(rng, a[:n], 0.015, 0.005)
+            b = np.concatenate([b, core])[-L:]
+        pairs.append((a, b))
+    return pairs
+
+
+def phase_free_kernels(report, sgd, ovd):
+    """K10s/K10d and K11s/K11d against their plain versions on the card,
+    bit for bit: ragged pairs with an empty side, m > n and 1,100
+    columns at the default and a non-dyadic parameter set; then each
+    main path's own chunks (the dirs fill at an ``align_batch`` chunk,
+    the score fill at a ``score_batch`` chunk), timed with CUDA
+    events."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+    from cse305_parallel_sequence_alignment_torch.models.overlap import (
+        OverlapBatchAligner,
+    )
+    from cse305_parallel_sequence_alignment_torch.models.semiglobal import (
+        FREE_END_PARAMS,
+        SemiGlobalBatchAligner,
+    )
+    from cse305_parallel_sequence_alignment_torch.ops import diag, rowcb
+
+    rng = np.random.default_rng(17)
+
+    def rnd(n):
+        return ACGT[rng.integers(0, 4, n)]
+
+    core = rnd(400)
+    ragged = [(rnd(250), rnd(1100)), (rnd(0), rnd(300)), (rnd(120), rnd(0)),
+              (rnd(0), rnd(0)), (np.concatenate([rnd(700), core]),  # m > n
+                                 np.concatenate([core, rnd(100)])),
+              (core, np.concatenate([rnd(600), core, rnd(99)])),
+              (rnd(1), rnd(1)), (rnd(999), rnd(1024))]
+    ragged = code_bucket(ragged)
+    kinds = {"semiglobal": ("K10s", diag.semiglobal_score, "K10d",
+                            rowcb.semiglobal_dirs,
+                            rowcb.semiglobal_dirs_plain,
+                            SemiGlobalBatchAligner, sgd),
+             "overlap": ("K11s", diag.overlap_score, "K11d",
+                         rowcb.overlap_dirs, rowcb.overlap_dirs_plain,
+                         OverlapBatchAligner, ovd)}
+    dev = torch.device("cuda")
+    for mode, (ks, score, kd, dirs_fill, dirs_plain, cls,
+               data) in kinds.items():
+        dirs_chunk, score_chunk = path_chunks(cls(), data)
+        cases = [("ragged 8 x <=1.1 k", ragged, ragged, False,
+                  FREE_END_PARAMS),
+                 ("ragged 8 x <=1.1 k, non-dyadic", ragged, ragged, False,
+                  ScoringParams(**NON_DYADIC)),
+                 (f"path chunks: {kd} {bucket_name(dirs_chunk)}, {ks} "
+                  f"{bucket_name(score_chunk)}", dirs_chunk, score_chunk,
+                  True, FREE_END_PARAMS)]
+        for name, dbucket, sbucket, big, params in cases:
+            la, lb = dbucket[2], dbucket[3]
+            args = [torch.from_numpy(x).to(dev) for x in dbucket]
+            sargs = [torch.from_numpy(x).to(dev) for x in sbucket]
+            zeros = torch.zeros_like(sargs[2])
+            reps = 3 if big else 1
+            (d_k, f_k), msd = timed(lambda: dirs_fill(*args, params), reps)
+            (d_p, f_p), pmsd = timed(lambda: dirs_plain(*args, params), 1,
+                                     warm=False)
+            ed = max(max_err(u16(d_k), u16(d_p)), max_err(f_k, f_p))
+            s_k, mss = timed(lambda: score(*sargs, params), reps)
+            s_p, pmss = timed(lambda: diag.diag_fill_plain(
+                *sargs, zeros, params, mode), 1, warm=False)
+            es = max_err(s_k, s_p)
+            print(f"[{mode}-kernels] {name}: {kd} err {ed} {msd:.3f} ms "
+                  f"(plain {pmsd:.1f} ms); {ks} err {es} {mss:.3f} ms "
+                  f"(plain {pmss:.1f} ms)", flush=True)
+            if ed or es:
+                raise RuntimeError(f"{kd}/{ks} disagree with their plain "
+                                   f"versions on {name}: {ed} {es}")
+            for key, err in ((kd, ed), (ks, es)):
+                report[key]["max_abs_err"] = max(report[key]["max_abs_err"],
+                                                 err)
+            if big:
+                cells = float((la.astype(np.int64) * lb).sum())
+                s_cells = float((sbucket[2].astype(np.int64)
+                                 * sbucket[3]).sum())
+                bounds = {kd: bound(DIRS_OPS * cells,
+                                    nbytes(*args, d_k, f_k)),
+                          ks: bound(DIAG_OPS * s_cells,
+                                    nbytes(*sargs, s_k))}
+                for key, ms, pms in ((kd, msd, pmsd), (ks, mss, pmss)):
+                    rep = report[key]
+                    rep["ms"], rep["plain_ms"] = ms, pms
+                    rep["bound_ms"], rep["bound_by"] = bounds[key]
+                print(f"[{mode}-kernels] {name}: {kd} "
+                      f"{cells / msd / 1e6:.1f} GCUPS, {ks} "
+                      f"{s_cells / mss / 1e6:.1f} GCUPS; bounds "
+                      f"{ {k: round(v[0], 4) for k, v in bounds.items()} } "
+                      f"ms", flush=True)
+            del d_k, d_p, args, sargs
+            torch.cuda.empty_cache()
+
+
+def phase_free_main(cls, data, out):
+    """One free-end path alone, for the launch window: ``align_batch`` on
+    all of ``data`` (one warm-up, 3 timed runs) and ``score_batch``."""
+    import torch
+
+    al = cls()
+    al.align_batch(data)  # warm-up
+    walls, phases = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = al.align_batch(data)
+        walls.append(time.perf_counter() - t0)
+        phases.append(dict(al.last_phases))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = al.score_batch(data)
+    t_score = time.perf_counter() - t0
+    out.update(res=res, walls=walls, phases=phases, chunks=al.last_chunks,
+               scores=scores, t_score=t_score, params=al.params)
+
+
+def check_free(mode, data, out):
+    """Gates of a free-end path; a run that fails one reports no speed."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.native import walker
+    from cse305_parallel_sequence_alignment_torch.ops.cigar import (
+        cigar_consumed,
+    )
+    from cse305_parallel_sequence_alignment_torch.ops.device_walk import (
+        rle_walk_plain,
+    )
+    from cse305_parallel_sequence_alignment_torch.ops.rowcb import (
+        overlap_dirs_plain,
+        semiglobal_dirs_plain,
+    )
+
+    res, params = out["res"], out["params"]
+    sg = mode == "semiglobal"
+    # the end cell of a chain: row la and the last B column (semi-global),
+    # the last A row and B column consumed (overlap)
+    if sg:
+        s_sc, s_t, s_j = out["scores"]
+        got = (np.array([r.score for r in res]),
+               np.array([r.end_table for r in res]),
+               np.array([r.target_span[1] for r in res]))
+        same = all(np.array_equal(x, y) for x, y in zip((s_sc, s_t, s_j),
+                                                        got))
+    else:
+        s_sc, s_t, s_i, s_j = out["scores"]
+        got = (np.array([r.score for r in res]),
+               np.array([r.end_table for r in res]),
+               np.array([r.a_span[1] for r in res]),
+               np.array([r.b_span[1] for r in res]))
+        same = all(np.array_equal(x, y) for x, y in zip((s_sc, s_t, s_i,
+                                                         s_j), got))
+    if not same:
+        raise RuntimeError(f"{mode}: score_batch disagrees with align_batch")
+    for k, ((a, b), r) in enumerate(zip(data, res)):
+        if chain_rescore(a, b, r.chain, params) != r.score:
+            raise RuntimeError(f"{mode} pair {k}: chain re-scores to "
+                               f"{chain_rescore(a, b, r.chain, params)}, "
+                               f"score {r.score}")
+        if sg and cigar_consumed(r.cigar)[0] != len(a):
+            raise RuntimeError(f"pair {k}: CIGAR {r.cigar} does not consume "
+                               f"the whole read")
+        if not sg and not (r.a_span[1] == len(a) or r.b_span[1] == len(b)):
+            raise RuntimeError(f"pair {k}: end {r.a_span[1], r.b_span[1]} "
+                               f"is on neither the last row nor column")
+    # the first 64 pairs through the plain versions on the card
+    dev = torch.device("cuda")
+    a, b, la, lb = code_bucket(data[:64])
+    plain = semiglobal_dirs_plain if sg else overlap_dirs_plain
+    dirs, best = plain(*[torch.from_numpy(x).to(dev)
+                         for x in (a, b, la, lb)], params)
+    et, ei, ej = (best[:, k].to(torch.int32) for k in (1, 2, 3))
+    ent, used = rle_walk_plain(dirs, ei, ej, et,
+                               int(la.max()) + int(lb.max()) + 1)
+    del dirs
+    best = best.cpu().numpy()
+    tt, ii, jj, lens, spans, cig, ext = walker.free_end_build(
+        ent.cpu().numpy()[: int(used[0])].T, best[:, 2].astype(np.int64),
+        best[:, 3].astype(np.int64), best[:, 1].astype(np.int32), a, b,
+        mode)
+    for r in range(len(lens)):
+        L = int(lens[r])
+        want = (float(best[r, 0]), int(best[r, 1]),
+                list(zip(ii[r, :L].tolist(), jj[r, :L].tolist(),
+                         tt[r, :L].tolist())), cig[r])
+        g = res[r]
+        if want != (g.score, g.end_table, list(g.chain), g.cigar) or (
+                sg and g.cigar_extended != ext[r]):
+            raise RuntimeError(f"{mode} pair {r}: align_batch differs from "
+                               f"the plain versions on the card")
+    torch.cuda.empty_cache()
+    walls, phases = out["walls"], out["phases"]
+    med = sorted(range(3), key=lambda k: walls[k])[1]
+    cells = float(sum(len(x) * len(y) for x, y in data))
+    split = ", ".join(f"{k} {v:.2f}" for k, v in phases[med].items())
+    lens = np.array([len(r.chain) for r in res])
+    print(f"[{mode}] align_batch {len(data)} pairs: walls "
+          f"{[round(w * 1e3, 2) for w in walls]} ms, "
+          f"{len(data) / walls[med]:.1f} pairs/s, "
+          f"{cells / walls[med] / 1e9:.2f} cell GCUPS (median run); phases "
+          f"{split}; {out['chunks']} chunks; score_batch "
+          f"{out['t_score'] * 1e3:.2f} ms, "
+          f"{cells / out['t_score'] / 1e9:.2f} GCUPS", flush=True)
+    print(f"[{mode}] gates held: score_batch = align_batch (score, table, "
+          f"end cell), {len(res)} chains re-score to their scores, "
+          + ("CIGARs consume the whole read" if sg else
+             "every end on the last row or column")
+          + f", first 64 pairs = plain versions on the card; chain length "
+          f"mean {lens.mean():.1f}, max {lens.max()}; mean score "
+          f"{float(np.mean(s_sc)):.3f}", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
     sys.path.insert(0, str(ROOT))
+    from cse305_parallel_sequence_alignment_torch.models.overlap import (
+        OverlapBatchAligner,
+    )
+    from cse305_parallel_sequence_alignment_torch.models.semiglobal import (
+        SemiGlobalBatchAligner,
+    )
     from cse305_parallel_sequence_alignment_torch.ops import (
         _build,
         device_walk,
+        diag,
         local,
         longrow,
         longstair,
@@ -942,8 +1314,8 @@ def main():
                    replaces="cse305_parallel_sequence_alignment_tpu/ops/"
                             "pallas_rowcb.py:126",
                    fn=rowcb.rowcb_fill),
-        "K3": dict(name="score_fill (K3 score fill)", route="cuda",
-                   source=f"{src}/rowcb.cu",
+        "K3": dict(name="score_fill (K3 anti-diagonal score fill)",
+                   route="cuda", source=f"{src}/diag.cu",
                    replaces="cse305_parallel_sequence_alignment_tpu/ops/"
                             "pallas_fill.py:216",
                    fn=rowcb.score_fill),
@@ -977,11 +1349,32 @@ def main():
                     replaces="cse305_parallel_sequence_alignment_tpu/ops/"
                              "device_walk.py:35",
                     fn=device_walk.local_walk),
+        "K10s": dict(name="semiglobal_score (K10s semi-global score fill)",
+                     route="cuda", source=f"{src}/diag.cu",
+                     replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                              "pallas_semiglobal.py:100",
+                     fn=diag.semiglobal_score),
+        "K10d": dict(name="semiglobal_dirs (K10d semi-global dirs fill)",
+                     route="cuda", source=f"{src}/rowcb.cu",
+                     replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                              "pallas_semiglobal.py:195",
+                     fn=rowcb.semiglobal_dirs),
+        "K11s": dict(name="overlap_score (K11s overlap score fill)",
+                     route="cuda", source=f"{src}/diag.cu",
+                     replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                              "overlap.py:124",
+                     fn=diag.overlap_score),
+        "K11d": dict(name="overlap_dirs (K11d overlap dirs fill)",
+                     route="cuda", source=f"{src}/rowcb.cu",
+                     replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                              "pallas_overlap.py:54",
+                     fn=rowcb.overlap_dirs),
     }
     for rep in report.values():
         # no single PyTorch call computes a Gotoh or SW fill or walk
         rep.update(max_abs_err=0.0, launches=0, library_ms=None)
     phase_kernels(report)
+    phase_numerics(report)
     phase_long_kernels(report)
     phase_golden()
 
@@ -1012,6 +1405,16 @@ def main():
     run_path("local", lambda: phase_local_main(data, local_out),
              ("K9s", "K9d", "K9w"))
     check_local(data, local_out)
+    del data, local_out
+    sgd, ovd = sg_data(), ov_data()
+    phase_free_kernels(report, sgd, ovd)
+    for mode, cls, d, kernels in (
+            ("semiglobal", SemiGlobalBatchAligner, sgd,
+             ("K10d", "K10s", "K2")),
+            ("overlap", OverlapBatchAligner, ovd, ("K11d", "K11s", "K2"))):
+        free_out = {}
+        run_path(mode, lambda: phase_free_main(cls, d, free_out), kernels)
+        check_free(mode, d, free_out)
     phase_cli()
 
     print(json.dumps({"kernels": [

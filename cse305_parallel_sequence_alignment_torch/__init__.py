@@ -2,18 +2,22 @@
 
 A second package beside ``cse305_parallel_sequence_alignment_tpu`` (the
 JAX reference, which it never imports). The ported slices are global
-Gotoh alignment of many pairs, the balanced partition of one long pair
-and local (Smith-Waterman) alignment of many pairs, on an NVIDIA H100:
+Gotoh alignment of many pairs, the balanced partition of one long pair,
+and local (Smith-Waterman), semi-global and overlap alignment of many
+pairs, on an NVIDIA H100:
 
 - ``core``      scoring parameters, boundary semantics, codec, results
 - ``ops``       CUDA kernels (``csrc/``) with their plain PyTorch
                 versions: K1 dirs16+runs fill, K3 score fill, K2
                 run-length walk, K6 long fill, K7 single-job last row,
-                K9s/K9d local fills, K9w local walk
-- ``models``    ``BatchAligner`` (global mode), ``GotohAligner`` and
-                ``LocalBatchAligner`` (local mode, CIGARs)
+                K9s/K9d local fills, K9w local walk, K10s/K10d
+                semi-global and K11s/K11d overlap fills
+- ``models``    ``BatchAligner`` (global mode), ``GotohAligner``,
+                ``LocalBatchAligner`` (local mode, CIGARs),
+                ``SemiGlobalBatchAligner`` and ``OverlapBatchAligner``
 - ``parallel``  ``PartitionedAligner`` (balanced partition)
-- ``native``    host replay and render (built from ``csrc/tsalib.cpp``)
+- ``native``    host replay, render and chain builds (built from
+                ``csrc/tsalib.cpp``)
 - ``utils``     run configuration, FASTA input
 - ``api``       ``align``, ``align_pairs``, ``score_pairs``
 

@@ -5,6 +5,8 @@ output format, plus ``--device`` ("cuda" by default):
 
   align      one global alignment (prints the reference's two-row format)
   local      one local (SW) alignment with CIGAR (prints JSON)
+  semiglobal one semi-global alignment, A fitted into B (prints JSON)
+  overlap    one overlap (dovetail) alignment (prints JSON)
   batch      score/align many pairs from a FASTA file
   partition  balanced-partition alignment of one long pair
   longscore  score of one long pair through the long fill (K6)
@@ -81,6 +83,46 @@ def cmd_local(args):
         "cigar_extended": res.cigar_extended,
         "query_span": [res.start_a, res.end_a],
         "target_span": [res.start_b, res.end_b],
+    }))
+    return 0
+
+
+def cmd_semiglobal(args):
+    cfg = config_from_args(args)
+    a, b = _resolve_pair(args, cfg)
+    from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+    from cse305_parallel_sequence_alignment_torch.models.semiglobal import (
+        SemiGlobalBatchAligner,
+    )
+    params = ScoringParams(g=cfg.g, h=cfg.h, match=cfg.match,
+                           mismatch=args.sg_mismatch)
+    res = SemiGlobalBatchAligner(params=params, device=args.device) \
+        .align_batch([(a, b)])[0]
+    print(json.dumps({
+        "score": res.score,
+        "cigar": res.cigar,
+        "cigar_extended": res.cigar_extended,
+        "target_span": list(res.target_span),
+    }))
+    return 0
+
+
+def cmd_overlap(args):
+    cfg = config_from_args(args)
+    a, b = _resolve_pair(args, cfg)
+    from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+    from cse305_parallel_sequence_alignment_torch.models.overlap import (
+        OverlapBatchAligner,
+    )
+    params = ScoringParams(g=cfg.g, h=cfg.h, match=cfg.match,
+                           mismatch=args.ov_mismatch)
+    res = OverlapBatchAligner(params=params, device=args.device) \
+        .align_batch([(a, b)])[0]
+    print(json.dumps({
+        "score": res.score,
+        "cigar": res.cigar,
+        "a_span": list(res.a_span),
+        "b_span": list(res.b_span),
     }))
     return 0
 
@@ -253,6 +295,22 @@ def main(argv=None):
     add_config_args(p)
     _add_device_arg(p)
     p.set_defaults(fn=cmd_local)
+
+    p = sub.add_parser("semiglobal",
+                       help="fit query into target (free target flanks)")
+    _add_pair_args(p)
+    p.add_argument("--sg-mismatch", type=float, default=-1.0)
+    add_config_args(p)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_semiglobal)
+
+    p = sub.add_parser("overlap",
+                       help="dovetail overlap detection (free outer ends)")
+    _add_pair_args(p)
+    p.add_argument("--ov-mismatch", type=float, default=-1.0)
+    add_config_args(p)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_overlap)
 
     p = sub.add_parser("batch", help="score/align many dataset pairs")
     p.add_argument("--count", type=int, default=100)

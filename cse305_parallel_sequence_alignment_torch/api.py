@@ -1,18 +1,22 @@
-"""Convenience API, global, local and partitioned modes (the slices of the
-JAX package's ``api`` that are ported so far):
+"""Convenience API, global, local, semi-global, overlap and partitioned
+modes (the slices of the JAX package's ``api`` that are ported so far):
 
     align(a, b)                           # one global alignment
     align(a, b, mode="local")             # SW + CIGAR
+    align(a, b, mode="semiglobal")        # fit a into b
+    align(a, b, mode="overlap")           # dovetail
     align(a, b, mode="partitioned", p=8)  # long-pair decomposition
     align_pairs(pairs, mode=...)          # batched full alignments
     score_pairs(pairs, mode=...)          # batched scores
 
 Every call takes ``device`` ("cuda" by default) and the keyword
-arguments of its aligner (``BatchAligner``, ``LocalBatchAligner``, or
+arguments of its aligner (``BatchAligner``, ``LocalBatchAligner``,
+``SemiGlobalBatchAligner``, ``OverlapBatchAligner``, or
 ``PartitionedAligner`` for "partitioned"). Local mode scores with
-``LOCAL_PARAMS`` unless ``params`` is given, as the JAX package does.
-The other modes raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+``LOCAL_PARAMS`` and the semi-global and overlap modes with ``g=1, h=2,
+match=1, mismatch=-1`` unless ``params`` is given, as the JAX package
+does. Banded mode raises ``NotImplementedError`` naming the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -22,8 +26,6 @@ from cse305_parallel_sequence_alignment_torch.core import ScoringParams
 _MODES = ("global", "local", "semiglobal", "overlap", "banded",
           "partitioned")
 _LATER = {
-    "semiglobal": "queue 1 item 11 (kernel K10)",
-    "overlap": "queue 1 item 11 (kernel K11)",
     "banded": "queue 1 item 12 (kernel K12)",
 }
 
@@ -42,6 +44,17 @@ def _aligner(mode, params, **kw):
             LocalBatchAligner,
         )
         return LocalBatchAligner(params=params or LOCAL_PARAMS, **kw)
+    if mode == "semiglobal":
+        from cse305_parallel_sequence_alignment_torch.models.semiglobal \
+            import FREE_END_PARAMS, SemiGlobalBatchAligner
+        return SemiGlobalBatchAligner(params=params or FREE_END_PARAMS,
+                                      **kw)
+    if mode == "overlap":
+        from cse305_parallel_sequence_alignment_torch.models.overlap import (
+            OVERLAP_PARAMS,
+            OverlapBatchAligner,
+        )
+        return OverlapBatchAligner(params=params or OVERLAP_PARAMS, **kw)
     from cse305_parallel_sequence_alignment_torch.models.batch import (
         BatchAligner,
     )
@@ -49,8 +62,9 @@ def _aligner(mode, params, **kw):
 
 
 def align(a, b, mode="global", params=None, p=None, **kw):
-    """One pairwise alignment; returns an ``AlignmentResult`` (a
-    ``LocalAlignmentResult`` in local mode)."""
+    """One pairwise alignment; returns the mode's result object
+    (``AlignmentResult``, ``LocalAlignmentResult``, ``SemiGlobalResult``
+    or ``OverlapResult``)."""
     if mode == "partitioned":
         from cse305_parallel_sequence_alignment_torch.parallel.partition \
             import PartitionedAligner
@@ -66,5 +80,7 @@ def align_pairs(pairs, mode="global", params=None, **kw):
 
 def score_pairs(pairs, mode="global", params=None, **kw):
     """Batched scores: the mode's ``score_batch`` tuple, (scores,
-    end_tables) in global mode, (scores, end_i, end_j) in local mode."""
+    end_tables) in global mode, (scores, end_i, end_j) in local mode,
+    (scores, end_tables, end_js) in semi-global mode and (scores,
+    end_tables, end_is, end_js) in overlap mode."""
     return _aligner(mode, params, **kw).score_batch(pairs)

@@ -45,10 +45,11 @@
 // strip.
 //
 // Numerics. float32 with true -inf, built with -fmad=false, the operation
-// order of the JAX kernels:
+// order that XLA runs for the JAX kernels, gh = g + h rounded to float32
+// (XLA folds the JAX source's x - g - h into one subtraction):
 //   T1 = fb + max3(prev row, j-1)
-//   T3 = max((max(T1,T2)(prev, j) - g) - h, T3(prev, j) - g)
-//   omega = ((g*j + max(T1,T3)(j-1)) - g) - h,  T2 = prefixmax(omega) - g*j
+//   T3 = max(max(T1,T2)(prev, j) - gh, T3(prev, j) - g)
+//   omega = (g*j + max(T1,T3)(j-1)) - gh,  T2 = prefixmax(omega) - g*j
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -109,6 +110,7 @@ strip_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     const int tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
     const float NEG = -CUDART_INF_F;
+    const float gh = g + h;  // float32, as XLA folds x - g - h
     if (tid == 0) s_cta = atomicAdd(ticket, 1);
     __syncthreads();
     const int job = s_cta / nstrips, s = s_cta % nstrips;
@@ -211,7 +213,7 @@ strip_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
                                           P3[jl - 1]);
                 const float fbl = bext[jl] == ac ? match : mismatch;
                 t1l = fbl + mp3ll;
-                t3l = fmaxf((q12 - g) - h, q3v - g);
+                t3l = fmaxf(q12 - gh, q3v - g);
             }
             lm3 = fmaxf(q12, q3v);
             m13l = fmaxf(t1l, t3l);
@@ -225,8 +227,8 @@ strip_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
             if (gj > 0) {
                 const float fb = bext[j] == ac ? match : mismatch;
                 t1 = fb + lm3;
-                t3 = fmaxf((mp12 - g) - h, p3 - g);
-                omega = ((g * (float)gj + m13l) - g) - h;
+                t3 = fmaxf(mp12 - gh, p3 - g);
+                omega = (g * (float)gj + m13l) - gh;
             }
             run_max = fmaxf(run_max, omega);
             Q1[j] = t1;

@@ -1,38 +1,51 @@
-// Gotoh row-sweep fills for the H100 (sm_90a), plain C interface.
+// Gotoh row-sweep dirs fills for the H100 (sm_90a), plain C interface.
 //
-// K1 rowcb_fill replaces the TPU kernel _rowcb_kernel
-// (cse305_parallel_sequence_alignment_tpu/ops/pallas_rowcb.py:126) with
-// want_dirs=True, with_runs=True, k1=0: it emits the uint16 "dirs16+runs"
-// cell of every (i, j) and the finals (T1, T2, T3) at (la, lb).
-// K3 score_fill replaces _score_kernel (ops/pallas_fill.py:216): the same
-// sweep without dirs or run state, finals only. Both are one template.
+// One template, three modes (wrappers in ops/rowcb.py):
+//   mode 0, K1 rowcb_fill: replaces the TPU kernel _rowcb_kernel
+//     (cse305_parallel_sequence_alignment_tpu/ops/pallas_rowcb.py:126) with
+//     want_dirs=True, with_runs=True, k1=0: the uint16 "dirs16+runs" cell of
+//     every (i, j) and the finals (T1, T2, T3) at (la, lb), with per-pair
+//     start types.
+//   mode 1, K10d: replaces _sg_rowdirs_kernel (ops/pallas_semiglobal.py:195,
+//     with_runs=True, perm=False): T1 = 0 on row 0, T3 = -h - g*i on column
+//     0, the best over the last query row.
+//   mode 2, K11d: replaces _ov_rowdirs_kernel (ops/pallas_overlap.py:54,
+//     with_runs=True, perm=False): T1 = 0 on row 0 and column 0, the best
+//     over the last row and the last column.
+// The score-only K3 is the anti-diagonal kernel of csrc/diag.cu.
 //
 // Design. One CTA per pair; the row loop runs inside the block (it takes
 // the place of the TPU's sequential row-block grid axis). Each thread owns
 // a contiguous chunk of C columns. T2's prefix max over the row is a
 // block-wide inclusive scan: each thread's running max over its chunk,
 // a warp shuffle scan, then the warp totals through shared memory.
-// The previous and the current DP row (T1/T2/T3, and for K1 the previous
-// row's packed cell, which carries its run length and after-run code)
-// are double-buffered by row parity, in shared memory, or in global
-// scratch that the wrapper allocates when the row is too wide. A thread
-// reads its left neighbour's previous-row cell (column c0-1) from the
-// other buffer, so no row is updated in place across a j-1 read.
+// The previous and the current DP row (T1/T2/T3 and the previous row's
+// packed cell, which carries its run length and after-run code) are
+// double-buffered by row parity, in shared memory, or in global scratch
+// that the wrapper allocates when the row is too wide. A thread reads its
+// left neighbour's previous-row cell (column c0-1) from the other buffer,
+// so no row is updated in place across a j-1 read. In modes 1 and 2 each
+// thread keeps its best end candidate (the mode's tie key); a warp shuffle
+// and a shared-memory pass reduce them after the last row.
 //
-// Bounds. Per cell ~40 float/int operations and, for K1, one 2-byte store
-// to device memory: 256 pairs x 2 kb is ~1.1 G cells and ~2.1 GB of dirs,
-// well under a millisecond of HBM bandwidth, so the fill is bound by the
-// serial chain of each row (two passes over a thread's chunk) and two
-// block barriers per row, not by memory. More pairs per SM hide the
-// latency; the chunk width C trades barrier count against chain length.
+// Bounds. Per cell ~40 float/int operations and one 2-byte store to device
+// memory: 256 pairs x 2 kb is ~1.1 G cells and ~2.1 GB of dirs, well under
+// a millisecond of HBM bandwidth, so the fill is bound by the serial chain
+// of each row (two passes over a thread's chunk) and two block barriers per
+// row, not by memory. More pairs per SM hide the latency; the chunk width C
+// trades barrier count against chain length.
 //
-// Numerics. float32 with true -inf and the JAX kernel's operation order
-// (built with -fmad=false so no multiply-add is contracted):
+// Numerics. float32 with true -inf and the operation order that XLA runs
+// for the JAX kernels (built with -fmad=false, so no multiply-add is
+// contracted), gh = g + h rounded to float32:
 //   T1 = fb + max3(prev row, j-1)
-//   T3 = max((max(T1,T2)(prev, j) - g) - h, T3(prev, j) - g)
-//   omega = ((g*j + max(T1,T3)(j-1)) - g) - h,  T2 = prefixmax(omega) - g*j
+//   T3 = max(max(T1,T2)(prev, j) - gh, T3(prev, j) - g)
+//   T2 = prefixmax(omega) - g*j with
+//   omega = (g*j + max(T1,T3)(j-1)) - gh           (mode 0)
+//   omega = (g*j - gh) + max(T1,T3)(j-1)           (modes 1, 2)
 // Direction codes use the tie order T1 >= T2 >= T3 (quirk B3).
 
+#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -40,7 +53,9 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
+constexpr float kNegInf = -INFINITY;  // usable in host and device code
 constexpr int kRunCap = 255;
+constexpr int kHeadBytes = 512;  // warp totals, then the best reduction
 
 __device__ __forceinline__ int argmax3(float c1, float c2, float c3) {
     return (c1 >= c2 && c1 >= c3) ? 0 : (c2 >= c3 ? 1 : 2);
@@ -56,8 +71,34 @@ __device__ __forceinline__ float warp_incl_max(float v) {
     return v;
 }
 
-// Row buffers of one pair: T[buf][table][col], and for K1 the packed cell
-// of the previous row P[buf][col].
+// End candidate: (value, d, table, j) ranks before another with the larger
+// value, then the smaller d, table and column. Mode 1 passes d = j (its key
+// is value, column, table), mode 2 the anti-diagonal i + j. Candidates of
+// value -inf never count, as the JAX updates are strict.
+struct Best {
+    float v = kNegInf;
+    int d = 0, t = 1, j = 0;
+    __device__ void offer(float cv, int cd, int ct, int cj) {
+        if (!(cv > kNegInf)) return;
+        if (cv > v || (cv == v && (cd < d || (cd == d && (ct < t ||
+                                                         (ct == t && cj < j)))))) {
+            v = cv;
+            d = cd;
+            t = ct;
+            j = cj;
+        }
+    }
+    __device__ void take_down(int s) {
+        const float ov = __shfl_down_sync(0xffffffffu, v, s);
+        const int od = __shfl_down_sync(0xffffffffu, d, s);
+        const int ot = __shfl_down_sync(0xffffffffu, t, s);
+        const int oj = __shfl_down_sync(0xffffffffu, j, s);
+        offer(ov, od, ot, oj);
+    }
+};
+
+// Row buffers of one pair: T[buf][table][col] and the packed cell of the
+// previous row P[buf][col].
 struct Rows {
     float* t;
     uint16_t* p;
@@ -68,13 +109,13 @@ struct Rows {
     __device__ uint16_t* P(int buf) const { return p + (size_t)buf * ncol; }
 };
 
-template <bool DIRS>
+template <int MODE>
 __global__ void __launch_bounds__(kMaxThreads)
 sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
              const int32_t* __restrict__ la, const int32_t* __restrict__ lb,
              const int32_t* __restrict__ st, uint16_t* __restrict__ dirs,
-             float* __restrict__ fin, char* __restrict__ scratch,
-             int B, int m, int n, int C, float g, float h, float match,
+             float* __restrict__ out, char* __restrict__ scratch, int B,
+             int m, int n, int C, float g, float h, float match,
              float mismatch) {
     extern __shared__ __align__(16) char smem[];
     const int pair = blockIdx.x;
@@ -82,19 +123,22 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     const int tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
     const float NEG = -CUDART_INF_F;
+    const float gh = g + h;  // float32, as XLA folds x - g - h
 
-    // shared layout: warp totals (32 f32) | b_ext (ncol u8, 16-aligned) |
-    // row buffers when they fit (else in global scratch, per pair)
+    // shared layout: warp totals (32 f32) and, after the rows, the best
+    // reduction (4 x 32 words) in the 512-byte head | b_ext (ncol u8,
+    // 16-aligned) | row buffers when they fit (else in global scratch)
     float* wsum = reinterpret_cast<float*>(smem);
-    uint8_t* bext = reinterpret_cast<uint8_t*>(smem + 128);
+    uint8_t* bext = reinterpret_cast<uint8_t*>(smem + kHeadBytes);
     const size_t bext_bytes = ((size_t)ncol + 15) & ~(size_t)15;
-    const size_t row_bytes = (size_t)ncol * (DIRS ? 28 : 24);
+    const size_t row_bytes = (size_t)ncol * 28;
     char* rowmem = scratch ? scratch + (size_t)pair * ((row_bytes + 15) & ~(size_t)15)
-                           : smem + 128 + bext_bytes;
+                           : smem + kHeadBytes + bext_bytes;
     Rows R{reinterpret_cast<float*>(rowmem),
            reinterpret_cast<uint16_t*>(rowmem + (size_t)ncol * 24), ncol};
 
-    const int sta = st[pair], lA = la[pair], lB = lb[pair];
+    const int sta = MODE == 0 ? st[pair] : 0;
+    const int lA = la[pair], lB = lb[pair];
     const uint8_t* arow = a + (size_t)pair * m;
     const uint8_t* brow = b + (size_t)pair * n;
     for (int j = tid; j < ncol; j += blockDim.x)
@@ -103,13 +147,18 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     const int c0 = tid * C;
     const int c1 = min(c0 + C, ncol);
     const size_t row_stride = (size_t)B * ncol;  // dirs (m+1, B, ncol)
-    uint16_t* drow = DIRS ? dirs + (size_t)pair * ncol : nullptr;
+    uint16_t* drow = dirs + (size_t)pair * ncol;
+    float* fin = out + (size_t)pair * (MODE == 0 ? 3 : 4);
+    Best best;
 
-    // row 0 (reference boundary, quirks kept: +2 acts as -1 on row 0)
+    // row 0: the reference boundary with per-pair start types (quirks kept:
+    // +2 acts as -1 on row 0), or a free T1 row in modes 1 and 2
     for (int j = c0; j < c1; ++j) {
         const float jg = g * (float)j;
-        float r1 = NEG, r2, r3 = NEG;
-        if (j == 0) {
+        float r1 = NEG, r2 = NEG, r3 = NEG;
+        if (MODE != 0) {
+            r1 = 0.0f;
+        } else if (j == 0) {
             r1 = (sta == 1 || sta == -1) ? 0.0f : NEG;
             r2 = (sta == -2) ? 0.0f : NEG;
             r3 = (sta == -3) ? 0.0f : NEG;
@@ -119,14 +168,19 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
         R.T(0, 0)[j] = r1;
         R.T(0, 1)[j] = r2;
         R.T(0, 2)[j] = r3;
-        if (DIRS) {
-            R.P(0)[j] = 0;
-            drow[j] = 0;
-        }
-        if (lA == 0 && j == lB) {
-            fin[pair * 3 + 0] = r1;
-            fin[pair * 3 + 1] = r2;
-            fin[pair * 3 + 2] = r3;
+        R.P(0)[j] = 0;
+        drow[j] = 0;
+        if (lA == 0) {
+            if (MODE == 0 && j == lB) {
+                fin[0] = r1;
+                fin[1] = r2;
+                fin[2] = r3;
+            }
+            if (MODE != 0 && j >= 1 && j <= lB) {  // on row 0, d = j
+                best.offer(r1, j, 1, j);
+                best.offer(r2, j, 2, j);
+                best.offer(r3, j, 3, j);
+            }
         }
     }
     __syncthreads();
@@ -141,9 +195,15 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
         float* Q3 = R.T(cur, 2);
         const int ac = arow[i - 1];
         const float fi = (float)i;
-        // column 0 of T3 (quirk: +3 acts as -1 on column 0)
-        const float col0_3 = (sta == -3) ? -g * fi
-                           : ((sta == 1 || sta == 2) ? NEG : -h - g * fi);
+        // column 0 (quirk: start +3 acts as -1 on column 0)
+        float col0_1 = NEG, col0_3 = NEG;
+        if (MODE == 0)
+            col0_3 = (sta == -3) ? -g * fi
+                   : ((sta == 1 || sta == 2) ? NEG : -h - g * fi);
+        else if (MODE == 1)
+            col0_3 = -h - g * fi;
+        else
+            col0_1 = 0.0f;
 
         // pass 1: T1, T3 and the chunk-local prefix max of omega
         float run_max = NEG;
@@ -154,13 +214,13 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
                 const int jl = c0 - 1;
                 const float q12 = fmaxf(P1[jl], P2[jl]);
                 const float q3v = P3[jl];
-                float t1l = NEG, t3l = col0_3;
+                float t1l = col0_1, t3l = col0_3;
                 if (jl > 0) {
                     const float mp3ll = fmaxf(fmaxf(P1[jl - 1], P2[jl - 1]),
                                               P3[jl - 1]);
                     const float fbl = bext[jl] == ac ? match : mismatch;
                     t1l = fbl + mp3ll;
-                    t3l = fmaxf((q12 - g) - h, q3v - g);
+                    t3l = fmaxf(q12 - gh, q3v - g);
                 }
                 lm3 = fmaxf(q12, q3v);
                 m13l = fmaxf(t1l, t3l);
@@ -169,12 +229,13 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
                 const float p1 = P1[j], p2 = P2[j], p3 = P3[j];
                 const float mp12 = fmaxf(p1, p2);
                 const float mp3 = fmaxf(mp12, p3);
-                float t1 = NEG, t3 = col0_3, omega = NEG;
+                float t1 = col0_1, t3 = col0_3, omega = NEG;
                 if (j > 0) {
                     const float fb = bext[j] == ac ? match : mismatch;
+                    const float jg = g * (float)j;
                     t1 = fb + lm3;
-                    t3 = fmaxf((mp12 - g) - h, p3 - g);
-                    omega = ((g * (float)j + m13l) - g) - h;
+                    t3 = fmaxf(mp12 - gh, p3 - g);
+                    omega = MODE == 0 ? (jg + m13l) - gh : (jg - gh) + m13l;
                 }
                 run_max = fmaxf(run_max, omega);
                 Q1[j] = t1;
@@ -197,70 +258,108 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
         if (lane == 0) inwarp = NEG;
         const float excl = fmaxf(wpre, inwarp);
 
-        // pass 2: T2, directions, run lengths, finals
+        // pass 2: T2, directions, run lengths, finals and end candidates
         if (c0 < c1) {
             int am3l = 0, d2l = 0, pwl = 0;  // column 0 sees zeros
             if (c0 > 0) {
                 const int jl = c0 - 1;
                 am3l = argmax3(P1[jl], P2[jl], P3[jl]);
-                if (DIRS) {
-                    pwl = R.P(prv)[jl];
-                    const float t2l = jl == 0 ? NEG : excl - g * (float)jl;
-                    d2l = argmax3(Q1[jl] - h, t2l, Q3[jl] - h);
-                }
+                pwl = R.P(prv)[jl];
+                const float t2l = jl == 0 ? NEG : excl - g * (float)jl;
+                d2l = argmax3(Q1[jl] - h, t2l, Q3[jl] - h);
             }
-            uint16_t* PW = DIRS ? R.P(prv) : nullptr;
-            uint16_t* QW = DIRS ? R.P(cur) : nullptr;
-            uint16_t* dout = DIRS ? drow + (size_t)i * row_stride : nullptr;
+            const uint16_t* PW = R.P(prv);
+            uint16_t* QW = R.P(cur);
+            uint16_t* dout = drow + (size_t)i * row_stride;
             for (int j = c0; j < c1; ++j) {
                 const float pm = fmaxf(Q2[j], excl);
                 const float t2 = j == 0 ? NEG : pm - g * (float)j;
                 Q2[j] = t2;
-                if (DIRS) {
-                    const float p1 = P1[j], p2 = P2[j], p3 = P3[j];
-                    const float t1 = Q1[j], t3 = Q3[j];
-                    const int d1 = am3l;
-                    const int d2 = d2l;
-                    const int d3 = argmax3(p1, p2, p3 + h);
-                    const int r_prev = pwl >> 8;
-                    const int ca_prev = (pwl >> 6) & 3;
-                    int r_cur = 0, ca_cur = d1;
-                    if (d1 == 0) {
-                        r_cur = min(r_prev + 1, kRunCap);
-                        ca_cur = r_prev >= kRunCap ? 0 : ca_prev;
-                    }
-                    const uint16_t word = (uint16_t)(
-                        d1 | (d2 << 2) | (d3 << 4) | (ca_cur << 6) |
-                        (r_cur << 8));
-                    QW[j] = word;
-                    dout[j] = word;
-                    am3l = argmax3(p1, p2, p3);
-                    d2l = argmax3(t1 - h, t2, t3 - h);
-                    pwl = PW[j];
+                const float p1 = P1[j], p2 = P2[j], p3 = P3[j];
+                const float t1 = Q1[j], t3 = Q3[j];
+                const int d1 = am3l;
+                const int d2 = d2l;
+                const int d3 = argmax3(p1, p2, p3 + h);
+                const int r_prev = pwl >> 8;
+                const int ca_prev = (pwl >> 6) & 3;
+                int r_cur = 0, ca_cur = d1;
+                if (d1 == 0) {
+                    r_cur = min(r_prev + 1, kRunCap);
+                    ca_cur = r_prev >= kRunCap ? 0 : ca_prev;
                 }
-                if (i == lA && j == lB) {
-                    fin[pair * 3 + 0] = Q1[j];
-                    fin[pair * 3 + 1] = t2;
-                    fin[pair * 3 + 2] = Q3[j];
+                const uint16_t word = (uint16_t)(
+                    d1 | (d2 << 2) | (d3 << 4) | (ca_cur << 6) |
+                    (r_cur << 8));
+                QW[j] = word;
+                dout[j] = word;
+                am3l = argmax3(p1, p2, p3);
+                d2l = argmax3(t1 - h, t2, t3 - h);
+                pwl = PW[j];
+                if (MODE == 0) {
+                    if (i == lA && j == lB) {
+                        fin[0] = t1;
+                        fin[1] = t2;
+                        fin[2] = t3;
+                    }
+                } else if (j >= 1 && j <= lB &&
+                           (i == lA || (MODE == 2 && j == lB && i < lA))) {
+                    // mode 1: row la; mode 2: row la and column lb
+                    const int key = MODE == 1 ? j : i + j;
+                    best.offer(t1, key, 1, j);
+                    best.offer(t2, key, 2, j);
+                    best.offer(t3, key, 3, j);
                 }
             }
         }
         __syncthreads();
     }
+    if (MODE == 0) return;
+
+    // block reduction of the per-thread end candidates (the head is free:
+    // the last row's barrier has passed)
+    float* wv = reinterpret_cast<float*>(smem);
+    int* wd = reinterpret_cast<int*>(smem + 128);
+    int* wt = reinterpret_cast<int*>(smem + 256);
+    int* wj = reinterpret_cast<int*>(smem + 384);
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) best.take_down(s);
+    if (lane == 0) {
+        wv[warp] = best.v;
+        wd[warp] = best.d;
+        wt[warp] = best.t;
+        wj[warp] = best.j;
+    }
+    __syncthreads();
+    if (warp != 0) return;
+    Best w;
+    if (lane < (int)(blockDim.x >> 5)) {
+        w.v = wv[lane];
+        w.d = wd[lane];
+        w.t = wt[lane];
+        w.j = wj[lane];
+    }
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) w.take_down(s);
+    if (lane == 0) {
+        const bool found = w.v > NEG;
+        fin[0] = w.v;
+        fin[1] = found ? (float)w.t : 1.0f;
+        fin[2] = MODE == 1 ? (float)lA : (found ? (float)(w.d - w.j) : 0.0f);
+        fin[3] = found ? (float)w.j : 0.0f;
+    }
 }
 
-template <bool DIRS>
+template <int MODE>
 int launch(const uint8_t* a, const uint8_t* b, const int32_t* la,
-           const int32_t* lb, const int32_t* st, uint16_t* dirs, float* fin,
+           const int32_t* lb, const int32_t* st, uint16_t* dirs, float* out,
            char* scratch, int B, int m, int n, int C, int threads,
            size_t smem, float g, float h, float match, float mismatch,
            cudaStream_t stream) {
-    if (B == 0) return 0;
-    auto kern = sweep_kernel<DIRS>;
+    auto kern = sweep_kernel<MODE>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    kern<<<B, threads, smem, stream>>>(a, b, la, lb, st, dirs, fin, scratch,
+    kern<<<B, threads, smem, stream>>>(a, b, la, lb, st, dirs, out, scratch,
                                        B, m, n, C, g, h, match, mismatch);
     return (int)cudaGetLastError();
 }
@@ -269,29 +368,32 @@ int launch(const uint8_t* a, const uint8_t* b, const int32_t* la,
 
 extern "C" {
 
-// dirs: (m+1, B, n+1) uint16; fin: (B, 3) f32; a: (B, m) u8; b: (B, n) u8;
-// la/lb/st: (B,) i32; C columns per thread, threads a multiple of 32 with
-// threads * C >= n + 1; scratch: null (rows in shared memory) or B row
-// buffers of (n+1) * 28 bytes (24 for score_fill), each rounded up to 16.
-// Returns a cudaError_t code.
+// mode 0 (K1), 1 (K10d) or 2 (K11d). dirs: (m+1, B, n+1) uint16; out:
+// (B, 3) f32 finals in mode 0, (B, 4) f32 [score, end_table, end_i, end_j]
+// in modes 1 and 2; a: (B, m) u8; b: (B, n) u8; la/lb/st: (B,) i32 (st
+// read in mode 0 only); C columns per thread, threads a multiple of 32
+// with threads * C >= n + 1; smem: 512 + (n+1 rounded up to 16) bytes,
+// plus the row buffers unless scratch holds B of them, (n+1) * 28 bytes
+// each rounded up to 16. Returns a cudaError_t code.
 int rowcb_fill(const uint8_t* a, const uint8_t* b, const int32_t* la,
                const int32_t* lb, const int32_t* st, uint16_t* dirs,
-               float* fin, char* scratch, int B, int m, int n, int C,
-               int threads, long long smem, float g, float h, float match,
-               float mismatch, void* stream) {
-    return launch<true>(a, b, la, lb, st, dirs, fin, scratch, B, m, n, C,
-                        threads, (size_t)smem, g, h, match, mismatch,
-                        (cudaStream_t)stream);
-}
-
-int score_fill(const uint8_t* a, const uint8_t* b, const int32_t* la,
-               const int32_t* lb, const int32_t* st, float* fin,
-               char* scratch, int B, int m, int n, int C, int threads,
-               long long smem, float g, float h, float match,
-               float mismatch, void* stream) {
-    return launch<false>(a, b, la, lb, st, nullptr, fin, scratch, B, m, n,
-                         C, threads, (size_t)smem, g, h, match, mismatch,
-                         (cudaStream_t)stream);
+               float* out, char* scratch, int mode, int B, int m, int n,
+               int C, int threads, long long smem, float g, float h,
+               float match, float mismatch, void* stream) {
+    if (B == 0) return 0;
+    if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+        (long long)threads * C < n + 1 || mode < 0 || mode > 2)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    const size_t sm = (size_t)smem;
+    if (mode == 0)
+        return launch<0>(a, b, la, lb, st, dirs, out, scratch, B, m, n, C,
+                         threads, sm, g, h, match, mismatch, s);
+    if (mode == 1)
+        return launch<1>(a, b, la, lb, st, dirs, out, scratch, B, m, n, C,
+                         threads, sm, g, h, match, mismatch, s);
+    return launch<2>(a, b, la, lb, st, dirs, out, scratch, B, m, n, C,
+                     threads, sm, g, h, match, mismatch, s);
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 // Native host runtime: the port's own copy of the JAX package's
 // native/tsalib.cpp (the port builds this file, ops/_build.py
 // host_library, and reads nothing of the other package). The port calls
-// tsa_replay_rle_batch, tsa_render and its own tsa_local_build
-// (native/walker.py).
+// tsa_replay_rle_batch, tsa_render and its own tsa_local_build and
+// tsa_free_end_build (native/walker.py).
 //
 // The device does the O(m*n) fill; these routines cover the
 // inherently sequential / IO-bound host side, mirroring the roles the
@@ -328,6 +328,36 @@ static int64_t put_run(char* out, int64_t len, char op) {
     return nd + 1;
 }
 
+// Run-length strings of one chain (start -> end, tables in t, B2 zeros):
+// the CIGAR (M/D/I) and the extended CIGAR (=/X/D/I), as ops/cigar.py's
+// chain_to_cigar and chain_to_cigar_extended build them; each run of r
+// points takes at most 2r bytes.
+static void chain_cigars(const int32_t* t, const int64_t* ii,
+                         const int64_t* jj, int64_t K, const uint8_t* a,
+                         const uint8_t* b, char* cig, int64_t* cig_len,
+                         char* ext, int64_t* ext_len) {
+    static const char kOp[4] = {'?', 'M', 'D', 'I'};
+    int64_t nc = 0, ne = 0, rc = 0, re = 0;
+    char pc = 0, pe = 0;
+    for (int64_t q = 0; q < K; q++) {
+        const char c = kOp[t[q]];
+        const char e = t[q] != 1 ? c
+                                 : (a[ii[q] - 1] == b[jj[q] - 1] ? '=' : 'X');
+        if (c == pc) { rc++; } else {
+            if (rc) nc += put_run(cig + nc, rc, pc);
+            pc = c; rc = 1;
+        }
+        if (e == pe) { re++; } else {
+            if (re) ne += put_run(ext + ne, re, pe);
+            pe = e; re = 1;
+        }
+    }
+    if (rc) nc += put_run(cig + nc, rc, pc);
+    if (re) ne += put_run(ext + ne, re, pe);
+    *cig_len = nc;
+    *ext_len = ne;
+}
+
 // One pair of tsa_local_build.
 static void local_one(const uint8_t* op, int64_t L, int64_t ei, int64_t ej,
                       const uint8_t* a, const uint8_t* b, int64_t cap,
@@ -354,28 +384,7 @@ static void local_one(const uint8_t* op, int64_t L, int64_t ei, int64_t ej,
         if (out_t[q] != 2) { *sa = out_i[q]; break; }
     for (int64_t q = 0; q < K; q++)
         if (out_t[q] != 3) { *sb = out_j[q]; break; }
-    // run-length strings; each run of r points takes at most 2r bytes
-    static const char kOp[4] = {'?', 'M', 'D', 'I'};
-    int64_t nc = 0, ne = 0, rc = 0, re = 0;
-    char pc = 0, pe = 0;
-    for (int64_t q = 0; q < K; q++) {
-        const int t = out_t[q];
-        const char c = kOp[t];
-        const char e = t != 1 ? c
-                              : (a[out_i[q] - 1] == b[out_j[q] - 1] ? '=' : 'X');
-        if (c == pc) { rc++; } else {
-            if (rc) nc += put_run(cig + nc, rc, pc);
-            pc = c; rc = 1;
-        }
-        if (e == pe) { re++; } else {
-            if (re) ne += put_run(ext + ne, re, pe);
-            pe = e; re = 1;
-        }
-    }
-    if (rc) nc += put_run(cig + nc, rc, pc);
-    if (re) ne += put_run(ext + ne, re, pe);
-    *cig_len = nc;
-    *ext_len = ne;
+    chain_cigars(out_t, out_i, out_j, K, a, b, cig, cig_len, ext, ext_len);
 }
 
 // Local-mode chains, spans and CIGARs from the local walk's table streams
@@ -405,6 +414,108 @@ int tsa_local_build(const uint8_t* ops, int64_t L, const int64_t* ei,
                       out_j + r * cap, out_len + r, out_sa + r, out_sb + r,
                       cig + r * scap, cig_len + r, ext + r * scap,
                       ext_len + r);
+        }
+    };
+    if (nthreads <= 1) {
+        worker(0);
+    } else {
+        std::vector<std::thread> pool;
+        for (int64_t w = 0; w < nthreads; w++) pool.emplace_back(worker, w);
+        for (auto& th : pool) th.join();
+    }
+    return 0;
+}
+
+// One pair of tsa_free_end_build; returns false if the entry stream ended
+// before the walk reached row 0 or column 0.
+static bool free_end_one(const uint16_t* ent, int64_t Rn, int64_t ei,
+                         int64_t ej, int et, const uint8_t* a,
+                         const uint8_t* b, int mode, int32_t* out_t,
+                         int64_t* out_i, int64_t* out_j, int64_t* len_out,
+                         int64_t* span, char* cig, int64_t* cig_len,
+                         char* ext, int64_t* ext_len) {
+    // the chain is written end -> start first, then reversed in place
+    int64_t K = 0;
+    auto push = [&](int64_t i, int64_t j, int t) {
+        out_t[K] = t;
+        out_i[K] = t == 2 ? 0 : i;
+        out_j[K] = t == 3 ? 0 : j;
+        K++;
+    };
+    int64_t i = ei, j = ej, e = 0, run = 0;
+    int t = et, pend = 0;
+    bool have = false;
+    while (i > 0 && j > 0) {
+        push(i, j, t);  // the end point is kept (no B1 drop)
+        if (!have) {
+            if (e >= Rn) return false;
+            const uint16_t w = ent[e++];
+            pend = w & 3;
+            run = w >> 2;
+            if (pend == 0) return false;
+            have = true;
+        }
+        int tn;
+        if (run > 0) { tn = 1; run--; }
+        else         { tn = pend; have = false; }
+        // move by the current table, continue in tn
+        if (t == 1)      { i--; j--; }
+        else if (t == 2) { j--; }
+        else             { i--; }
+        t = tn;
+    }
+    if (mode == 1)  // semi-global: the forced leading gap-in-B run
+        while (i > 0) { push(i, 0, 3); i--; }
+    std::reverse(out_t, out_t + K);
+    std::reverse(out_i, out_i + K);
+    std::reverse(out_j, out_j + K);
+    *len_out = K;
+    // spans: first and last A row (tables 1, 3) and B column (1, 2)
+    span[0] = span[1] = span[2] = span[3] = 0;
+    for (int64_t q = 0; q < K; q++)
+        if (out_t[q] != 2) { span[0] = out_i[q]; break; }
+    for (int64_t q = K - 1; q >= 0; q--)
+        if (out_t[q] != 2) { span[1] = out_i[q]; break; }
+    for (int64_t q = 0; q < K; q++)
+        if (out_t[q] != 3) { span[2] = out_j[q]; break; }
+    for (int64_t q = K - 1; q >= 0; q--)
+        if (out_t[q] != 3) { span[3] = out_j[q]; break; }
+    chain_cigars(out_t, out_i, out_j, K, a, b, cig, cig_len, ext, ext_len);
+    return true;
+}
+
+// Semi-global (mode 1) and overlap (mode 2) chains, spans and CIGARs from
+// the run-length walk's entries (ops/device_walk.py rle_walk started at
+// each pair's end cell; rows transposed: ent[r * Rn + k] = entry k of
+// pair r, (op+1) | run << 2, 0 past its stream). Pair r's walk starts at
+// (ei[r], ej[r]) in table et[r] and stops at row 0 or column 0; the chain,
+// start -> end with the end point included and gap points storing 0 for
+// the gapped side, goes to out_t/out_i/out_j[r * cap ...] and its length
+// to out_len[r] (-1 if the stream ended early: corrupt entries). In mode 1
+// a walk that stops on column 0 with i > 0 adds the forced run (i, 0, 3)
+// down to row 1, as walk_semiglobal_batch_device does. span[r * 4 ...]
+// gets the first and last A row and B column the chain consumes (0 for
+// none); cig/ext[r * scap ...] the CIGAR and extended CIGAR, lengths in
+// cig_len/ext_len. a/b: the bucket's (B, m) / (B, n) codes. cap >= the
+// longest chain (ei + ej), scap >= 2 cap.
+int tsa_free_end_build(const uint16_t* ent, int64_t Rn, const int64_t* ei,
+                       const int64_t* ej, const int32_t* et,
+                       const uint8_t* a, int64_t m, const uint8_t* b,
+                       int64_t n, int64_t B, int mode, int64_t cap,
+                       int32_t* out_t, int64_t* out_i, int64_t* out_j,
+                       int64_t* out_len, int64_t* span, int64_t scap,
+                       char* cig, int64_t* cig_len, char* ext,
+                       int64_t* ext_len) {
+    int64_t nthreads = std::min<int64_t>(
+        B, std::max(1u, std::thread::hardware_concurrency()));
+    auto worker = [&](int64_t w) {
+        for (int64_t r = w; r < B; r += nthreads) {
+            if (!free_end_one(ent + r * Rn, Rn, ei[r], ej[r], et[r],
+                              a + r * m, b + r * n, mode, out_t + r * cap,
+                              out_i + r * cap, out_j + r * cap, out_len + r,
+                              span + r * 4, cig + r * scap, cig_len + r,
+                              ext + r * scap, ext_len + r))
+                out_len[r] = -1;
         }
     };
     if (nthreads <= 1) {

@@ -3,12 +3,13 @@
 The port of the JAX package's ``models/local.py`` (BASELINE config 3:
 batch SW with verified traceback CIGARs). Pairs are bucketed by a
 quantum on both axes (no parity swap: local mode has no reference
-quirks) and padded. ``align_batch`` runs, per chunk of a bucket whose
-dirs fit ``dirs_budget``: the K9d fill (ops/local.py) with its skew dirs
-and best cells, the K9w walk (ops/device_walk.py) from each best cell,
-and a copy of only the walk's table streams and the best values to
-pinned host memory; the dirs never leave the card. The host then builds
-chains, spans and CIGARs in the native library (native/walker.py
+quirks) and padded, and chunked and pipelined by models/chunked.py.
+``align_batch`` runs, per chunk of a bucket whose dirs fit
+``dirs_budget``: the K9d fill (ops/local.py) with its skew dirs and best
+cells, the K9w walk (ops/device_walk.py) from each best cell, and a copy
+of only the walk's table streams and the best values to pinned host
+memory; the dirs never leave the card. The host then builds chains,
+spans and CIGARs in the native library (native/walker.py
 ``local_build``, one thread per core), while the device fills and walks
 the next chunk. ``score_batch`` runs the K9s score fill only.
 
@@ -28,11 +29,9 @@ from cse305_parallel_sequence_alignment_torch.core import (
     LazyChain,
     ScoringParams,
 )
-from cse305_parallel_sequence_alignment_torch.models.batch import (
-    _bucket_arrays,
-    _buckets,
-    _encode_many,
-    _Marks,
+from cse305_parallel_sequence_alignment_torch.models.batch import _Marks
+from cse305_parallel_sequence_alignment_torch.models.chunked import (
+    ChunkedAligner,
 )
 from cse305_parallel_sequence_alignment_torch.models.local_oracle import (
     LOCAL_PARAMS,
@@ -62,19 +61,16 @@ class LocalAlignmentResult:
     cigar_extended: str
 
 
-PHASES = ("fill_ms", "walk_ms", "d2h_ms", "build_ms")
-
-
 @dataclasses.dataclass
-class LocalBatchAligner:
+class LocalBatchAligner(ChunkedAligner):
     """Aligns many pairs locally, length-bucketed like BatchAligner.
 
     ``max_batch`` caps pairs per launch and ``dirs_budget`` the bytes of
     one chunk's dirs. ``device`` is where the kernels run.
     ``last_phases`` holds the phase times (ms) of the latest
-    ``align_batch``: fill, walk and device-to-host on the device's clock,
-    the chain and CIGAR build on the host's; ``last_chunks`` its number
-    of chunks.
+    ``align_batch``: prep and the chain and CIGAR build on the host's
+    clock, fill, walk and device-to-host on the device's; ``last_chunks``
+    its number of chunks.
     """
 
     params: ScoringParams = LOCAL_PARAMS
@@ -83,70 +79,21 @@ class LocalBatchAligner:
     dirs_budget: int = 2 << 30  # align_batch chunk cap (bytes of dirs)
     device: str = "cuda"
 
-    def __post_init__(self):
-        self._dev = torch.device(self.device)
-        if self._dev.type not in ("cpu", "cuda"):
-            raise ValueError(f"device {self.device!r}: 'cuda' or 'cpu'")
-        if self._dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"LocalBatchAligner(device={self.device!r}) needs a CUDA "
-                "card and none is available; pass device='cpu' to run the "
-                "plain PyTorch kernels on the CPU")
-        self.last_phases = dict.fromkeys(PHASES, 0.0)
-        self.last_chunks = 0
+    score_width = 3
 
-    def _prep(self, pairs):
-        enc_a = _encode_many([p[0] for p in pairs])
-        enc_b = _encode_many([p[1] for p in pairs])
-        return enc_a, enc_b, _buckets(enc_a, enc_b, self.bucket_quantum)
+    @staticmethod
+    def _dirs_bytes(bm, bn):
+        return (bm + bn + 1) * (bn + 1)  # uint8 skew dirs
 
-    def _to_dev(self, *arrays):
-        return [torch.from_numpy(x).to(self._dev) for x in arrays]
+    @staticmethod
+    def _score_fill(a, b, la, lb, params):
+        return sw_score(a, b, la, lb, params)
 
     def score_batch(self, pairs):
         """(scores, end_i, end_j) arrays for all pairs."""
-        enc_a, enc_b, buckets = self._prep(pairs)
-        scores = np.zeros(len(pairs), np.float32)
-        ei = np.zeros(len(pairs), np.int32)
-        ej = np.zeros(len(pairs), np.int32)
-        for key, idxs in buckets.items():
-            for s in range(0, len(idxs), self.max_batch):
-                chunk = idxs[s: s + self.max_batch]
-                arrays = _bucket_arrays(enc_a, enc_b, chunk, key)
-                best = sw_score(*self._to_dev(*arrays),
-                                self.params).cpu().numpy()
-                scores[chunk] = best[:, 0]
-                ei[chunk] = best[:, 1].astype(np.int32)
-                ej[chunk] = best[:, 2].astype(np.int32)
-        return scores, ei, ej
-
-    def align_batch(self, pairs):
-        """Full local alignments with CIGARs for all pairs."""
-        enc_a, enc_b, buckets = self._prep(pairs)
-        results: list = [None] * len(pairs)
-        self.last_phases = dict.fromkeys(PHASES, 0.0)
-        self.last_chunks = 0
-        pending: list = []
-        for key, idxs in buckets.items():
-            bm, bn = key
-            per_pair = (bm + bn + 1) * (bn + 1)  # uint8 skew dirs
-            step = max(1, min(self.max_batch,
-                              self.dirs_budget // per_pair))
-            if step < len(idxs):
-                # equal chunks: a ragged tail pays a whole sweep for little
-                nchunks = -(-len(idxs) // step)
-                step = -(-len(idxs) // nchunks)
-            for s in range(0, len(idxs), step):
-                chunk = idxs[s: s + step]
-                a, b, la, lb = _bucket_arrays(enc_a, enc_b, chunk, key)
-                pending.append((chunk, a, b, self._dispatch(a, b, la, lb)))
-                self.last_chunks += 1
-                # the device fills the next chunk while the host builds
-                while len(pending) > 1:
-                    self._emit(pending.pop(0), results)
-        while pending:
-            self._emit(pending.pop(0), results)
-        return results
+        out = self._scores(pairs)
+        return (out[:, 0].copy(), out[:, 1].astype(np.int32),
+                out[:, 2].astype(np.int32))
 
     def _dispatch(self, a, b, la, lb):
         """Queue fill, walk and the device-to-host copies of one chunk on
@@ -175,7 +122,7 @@ class LocalBatchAligner:
         """Wait for a dispatched chunk and build its results."""
         chunk, a, b, ((ops_h, used_h, best_h), marks, max_steps) = item
         marks.wait()
-        for k, name in enumerate(PHASES[:3]):
+        for k, name in enumerate(("fill_ms", "walk_ms", "d2h_ms")):
             self.last_phases[name] += marks.ms(k)
         t0 = time.perf_counter()
         used = int(used_h[0])

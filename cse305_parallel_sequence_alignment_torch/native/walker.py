@@ -1,5 +1,5 @@
-"""ctypes bindings for the host replay, render and local build
-(``tsalib.cpp``).
+"""ctypes bindings for the host replay, render, local build and
+free-end (semi-global / overlap) build (``tsalib.cpp``).
 
 The library is compiled from the port's ``csrc/tsalib.cpp`` (a copy of
 the reference package's ``native/tsalib.cpp``) into the port's own
@@ -36,6 +36,12 @@ def _lib():
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_int64] + [ctypes.c_void_p] * 6 + [
         ctypes.c_int64] + [ctypes.c_void_p] * 4
+    lib.tsa_free_end_build.restype = ctypes.c_int
+    lib.tsa_free_end_build.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 4 + [
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int64] + [ctypes.c_void_p] * 5 + [
+        ctypes.c_int64] + [ctypes.c_void_p] * 4
     return lib
 
 
@@ -68,9 +74,63 @@ def local_build(ops, end_i, end_j, a, b):
         ii.ctypes.data, jj.ctypes.data, lens.ctypes.data, sa.ctypes.data,
         sb.ctypes.data, scap, cig.ctypes.data, nc.ctypes.data,
         ext.ctypes.data, ne.ctypes.data)
-    cigars = [cig[r, : nc[r]].tobytes().decode("ascii") for r in range(B)]
-    extended = [ext[r, : ne[r]].tobytes().decode("ascii") for r in range(B)]
-    return tt, ii, jj, lens, sa, sb, cigars, extended
+    return tt, ii, jj, lens, sa, sb, _strings(cig, nc), _strings(ext, ne)
+
+
+def free_end_build(entries, end_i, end_j, end_t, a, b, mode):
+    """Thread-parallel build of semi-global (``mode`` "semiglobal") or
+    overlap ("overlap") chains, spans and CIGARs from the run-length
+    walk's entries (``entries`` (B, Rn) uint16, entry = (op+1) | run <<
+    2, pair r's walk started at (end_i[r], end_j[r]) in table end_t[r]);
+    ``a``/``b`` are the bucket's codes. Pair r's chain is ``(ii[r, k],
+    jj[r, k], tt[r, k])`` for k < lens[r], start->end with the end point
+    included and 0 for a gap's gapped side, plus in semi-global mode the
+    forced leading column-0 run: the chains of the JAX package's
+    ``walk_semiglobal_batch_device`` / ``walk_overlap_batch_device``.
+    ``spans[r]`` is (first A row, last A row, first B column, last B
+    column) the chain consumes, 0 for none; the strings are ops/cigar.py's
+    ``chain_to_cigar`` and ``chain_to_cigar_extended``. Returns (tt, ii,
+    jj, lens, spans, cigars, extended); raises if a stream ends before row
+    0 or column 0."""
+    code = {"semiglobal": 1, "overlap": 2}[mode]
+    lib = _lib()
+    entries = np.ascontiguousarray(entries, np.uint16)
+    B, Rn = entries.shape
+    ei = np.ascontiguousarray(end_i, np.int64)
+    ej = np.ascontiguousarray(end_j, np.int64)
+    et = np.ascontiguousarray(end_t, np.int32)
+    a = np.ascontiguousarray(a, np.uint8)
+    b = np.ascontiguousarray(b, np.uint8)
+    cap = max(1, int(ei.max(initial=0) + ej.max(initial=0)))
+    scap = 2 * cap
+    # pair r's chain fills [r, :lens[r]]; the rest is never read
+    tt = np.empty((B, cap), np.int32)
+    ii = np.empty((B, cap), np.int64)
+    jj = np.empty((B, cap), np.int64)
+    lens, nc, ne = (np.empty(B, np.int64) for _ in range(3))
+    spans = np.empty((B, 4), np.int64)
+    cig = np.empty((B, scap), np.uint8)
+    ext = np.empty((B, scap), np.uint8)
+    lib.tsa_free_end_build(
+        entries.ctypes.data, Rn, ei.ctypes.data, ej.ctypes.data,
+        et.ctypes.data, a.ctypes.data, a.shape[1], b.ctypes.data,
+        b.shape[1], B, code, cap, tt.ctypes.data, ii.ctypes.data,
+        jj.ctypes.data, lens.ctypes.data, spans.ctypes.data, scap,
+        cig.ctypes.data, nc.ctypes.data, ext.ctypes.data, ne.ctypes.data)
+    if (lens < 0).any():
+        bad = np.nonzero(lens < 0)[0]
+        raise RuntimeError(
+            f"RLE walk stream ended before row 0 or column 0 for pairs "
+            f"{bad[:8].tolist()} (corrupt entries)")
+    return tt, ii, jj, lens, spans, _strings(cig, nc), _strings(ext, ne)
+
+
+def _strings(buf, lens):
+    """Row r's first lens[r] bytes of a (B, cap) uint8 buffer, as str."""
+    raw = buf.tobytes()
+    cap = buf.shape[1]
+    return [raw[r * cap: r * cap + n].decode("ascii")
+            for r, n in enumerate(lens.tolist())]
 
 
 def replay_rle(entries, la, lb, t0s, mode, offsets=None, chunk=None):

@@ -1,4 +1,5 @@
-"""Build and load the port's native code at first use.
+"""Build and load the port's native code at first use; the bucket check
+and mode numbers the fill kernels share.
 
 CUDA kernels (``csrc/*.cu``) are compiled by ``nvcc`` into shared
 libraries with a plain C interface and loaded with ctypes; the host
@@ -24,11 +25,15 @@ import pathlib
 import shutil
 import subprocess
 
+import torch
+
 PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 TSALIB = CSRC / "tsalib.cpp"
-KERNELS = ("rowcb", "walk", "longrow", "local")  # csrc/<name>.cu
+KERNELS = ("rowcb", "walk", "longrow", "local", "diag")  # csrc/<name>.cu
+# mode numbers of csrc/diag.cu and csrc/rowcb.cu
+MODES = {"global": 0, "semiglobal": 1, "overlap": 2}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
@@ -93,3 +98,26 @@ def check(err, what):
     """Raise if a kernel entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def check_bucket(a, b, la, lb, st):
+    """Raise on a bucket the fills of ops/rowcb.py, ops/diag.py and
+    ops/longrow.py do not take: ``a`` (B, m) and ``b`` (B, n) uint8 codes,
+    ``la``, ``lb`` and ``st`` (B,) int32, contiguous, on one device."""
+    if a.dtype != torch.uint8 or b.dtype != torch.uint8:
+        raise TypeError("a and b must be uint8 code tensors")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0]:
+        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must "
+                         f"be (B, m) and (B, n)")
+    B = a.shape[0]
+    for name, v in (("la", la), ("lb", lb), ("st", st)):
+        if v.dtype != torch.int32 or tuple(v.shape) != (B,):
+            raise ValueError(f"{name} must be ({B},) int32, got "
+                             f"{tuple(v.shape)} {v.dtype}")
+    for v in (a, b, la, lb, st):
+        if v.device != a.device:
+            raise ValueError("all inputs must be on one device")
+        if not v.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {a.device}")

@@ -7,9 +7,10 @@ returning either the finals (B, 3) float32 (T1, T2, T3) at (la, lb), the
 contract of ``pallas_long_score_batch``, or with ``want_row`` the whole
 row la of each job, (B, 3, n+1), the contract of
 ``_longrow_lastrow_fins`` and ``pallas_long_lastrow``. Its plain version
-is the K1/K3 row sweep (ops/rowcb.py ``_sweep_plain``) with a last-row
-capture; the kernel (``csrc/longrow.cu``) cuts each job into column strips
-that pass boundary records to their right neighbour, in place of the TPU's
+is K1's row sweep (ops/rowcb.py ``_sweep_plain``, global mode, ``gh``
+folded as in K1) with a last-row capture; the kernel
+(``csrc/longrow.cu``) cuts each job into column strips that pass
+boundary records to their right neighbour, in place of the TPU's
 host loop over 1024-lane column chunks.
 
 ``batched_crossings`` finds, for a whole bisection level of the balanced
@@ -36,10 +37,7 @@ from cse305_parallel_sequence_alignment_torch.core import (
     ScoringParams,
 )
 from cse305_parallel_sequence_alignment_torch.ops import _build
-from cse305_parallel_sequence_alignment_torch.ops.rowcb import (
-    _check,
-    _sweep_plain,
-)
+from cse305_parallel_sequence_alignment_torch.ops.rowcb import _sweep_plain
 
 # most columns a thread owns; the strip width is threads * C
 MAX_C = 8
@@ -117,7 +115,7 @@ def _launch(a, b, la, lb, st, params, want_row):
 def long_fill(a, b, la, lb, st, params, want_row=False):
     """K6: score sweep of a bucket of any width (see the module
     docstring); a (B, m) and b (B, n) uint8, la/lb/st (B,) int32."""
-    _check(a, b, la, lb, st)
+    _build.check_bucket(a, b, la, lb, st)
     if a.device.type == "cpu":
         return long_fill_plain(a, b, la, lb, st, params, want_row)
     out = _launch(a, b, la, lb, st, params, want_row)

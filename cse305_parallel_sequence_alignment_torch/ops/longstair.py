@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from cse305_parallel_sequence_alignment_torch.core import ScoringParams
-from cse305_parallel_sequence_alignment_torch.ops import longrow
+from cse305_parallel_sequence_alignment_torch.ops import _build, longrow
 
 
 def _one_job(a, b, start_type):
@@ -44,7 +44,7 @@ def stair_lastrow_device(a, b, start_type, params):
     """K7: last DP row (3, n+1) float32 of one job, a (m,) and b (n,)
     uint8 tensors, on their device."""
     args = _one_job(a, b, start_type)
-    longrow._check(*args)
+    _build.check_bucket(*args)
     if a.device.type == "cpu":
         return stair_lastrow_plain(a, b, start_type, params)
     out = longrow._launch(*args, params, want_row=True)[0]

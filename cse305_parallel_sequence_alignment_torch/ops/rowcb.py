@@ -1,23 +1,42 @@
-"""Global Gotoh row-sweep fills: K1 (dirs16+runs) and K3 (score only).
+"""Gotoh row-sweep dirs fills: K1 (global), K10d (semi-global), K11d
+(overlap), and the re-export of K3.
 
 K1 ``rowcb_fill`` is the port of the TPU kernel ``_rowcb_kernel``
 (cse305_parallel_sequence_alignment_tpu/ops/pallas_rowcb.py:126) with
-``want_dirs=True, with_runs=True, k1=0``; K3 ``score_fill`` is the port of
-``_score_kernel`` (ops/pallas_fill.py:216). Both run the same row sweep
-(``csrc/rowcb.cu``, one CUDA template) with per-pair start types:
+``want_dirs=True, with_runs=True, k1=0``; K10d ``semiglobal_dirs`` of
+``_sg_rowdirs_kernel`` (ops/pallas_semiglobal.py:195) and K11d
+``overlap_dirs`` of ``_ov_rowdirs_kernel`` (ops/pallas_overlap.py:54),
+both with ``with_runs=True, perm=False``. All three run one row sweep
+(``csrc/rowcb.cu``, one CUDA template with a mode parameter):
 
 - ``T1 = f(A[i], B[j]) + max3(prev row, j-1)``
-- ``T3 = max((max(T1,T2)(prev, j) - g) - h, T3(prev, j) - g)``
-- ``T2 = prefixmax(omega) - g*j`` with
-  ``omega = ((g*j + max(T1,T3)(j-1)) - g) - h`` (reference P2)
+- ``T3 = max(max(T1,T2)(prev, j) - gh, T3(prev, j) - g)``
+- ``T2 = prefixmax(omega) - g*j`` with ``omega = (g*j + max(T1,T3)(j-1))
+  - gh`` in global mode and ``omega = (g*j - gh) + max(T1,T3)(j-1)`` in
+  the two free modes (reference P2)
+
+where ``gh = g + h`` is rounded to float32: the JAX source writes
+``x - g - h`` and XLA folds the two constants into one subtraction.
+
+Global mode takes per-pair start types ``st`` for row 0 and column 0 and
+returns the finals (B, 3) float32 (T1, T2, T3) at (la, lb). Semi-global
+mode has T1 = 0 on row 0 and T3 = -h - g*i on column 0 and returns the
+best over the last query row (value desc, column asc, table T1 > T2 >
+T3) as (B, 4) float32 [score, end_table, end_i = la, end_j]. Overlap mode
+has T1 = 0 on row 0 and column 0 and returns the best over row la
+(columns 1..lb) and column lb (rows 1..la, when lb >= 1), value desc,
+then anti-diagonal asc, then table, then column, as (B, 4) [score,
+end_table, end_i, end_j], or (-inf, 1, 0, 0) when no cell qualifies.
 
 Inputs are a bucket: ``a`` (B, m) and ``b`` (B, n) uint8 codes padded
-with ``PAD_A``/``PAD_B``, lengths ``la``/``lb`` and start types ``st``,
-each (B,) int32. Every cell of the bucket is computed, padding included.
-K1 returns ``dirs`` of shape (m+1, B, n+1) uint16, cell (i, j) of pair b
-at ``dirs[i, b, j]``, packing [d1 | d2 << 2 | d3 << 4 | after-run code
-<< 6 | run length << 8] (the JAX ``with_runs`` encoding); both return
-the finals (B, 3) float32 (T1, T2, T3) at (la, lb).
+with ``PAD_A``/``PAD_B`` and lengths ``la``/``lb``, each (B,) int32.
+Every cell of the bucket is computed, padding included. ``dirs`` is
+(m+1, B, n+1) uint16, cell (i, j) of pair b at ``dirs[i, b, j]``,
+packing [d1 | d2 << 2 | d3 << 4 | after-run code << 6 | run length << 8]
+(the JAX ``with_runs`` encoding) in every mode.
+
+K3 ``score_fill`` (global finals only) is the anti-diagonal kernel of
+``ops/diag.py``, re-exported here under its old name.
 
 A CPU tensor goes to the plain PyTorch version beside each kernel; a CUDA
 tensor launches the kernel or raises.
@@ -39,8 +58,13 @@ from cse305_parallel_sequence_alignment_torch.core import (
     PAD_B,
 )
 from cse305_parallel_sequence_alignment_torch.ops import _build
+from cse305_parallel_sequence_alignment_torch.ops.diag import (  # noqa: F401
+    score_fill,
+    score_fill_plain,
+)
 
 RUN_CAP = 255
+_BIG = 1 << 30  # above any column or anti-diagonal index
 # dynamic shared memory above which the row buffers go to global scratch
 SMEM_LIMIT = 200 * 1024
 
@@ -57,39 +81,54 @@ def _shift(x, fill):
     return torch.cat([col, x[:, :-1]], dim=1)
 
 
-def _sweep_plain(a, b, la, lb, st, params, want_dirs, want_row=False):
+def _sweep_plain(a, b, la, lb, st, params, want_dirs, want_row=False,
+                 mode="global"):
     """Row loop over (B, n+1) tensors in the kernel's float32 order.
 
-    Returns (dirs or None, out): ``out`` is the finals (B, 3) at (la, lb),
-    or with ``want_row`` the whole row la of each pair, (B, 3, n+1)."""
+    Returns (dirs or None, out). In global mode ``out`` is the finals
+    (B, 3) at (la, lb), or with ``want_row`` the whole row la of each
+    pair, (B, 3, n+1); in semi-global and overlap mode it is the best
+    (B, 4) [score, end_table, end_i, end_j] (see the module docstring)."""
+    code = _build.MODES[mode]
     B, m = a.shape
     n = b.shape[1]
     dev = a.device
     f32 = torch.float32
     g, h, match, mismatch = (torch.tensor(float(x), dtype=f32, device=dev)
                              for x in params.astuple())
+    gh = g + h  # float32, as XLA folds the JAX kernels' x - g - h
     neg = torch.tensor(NEG_INF, dtype=f32, device=dev)
     zero = torch.tensor(0.0, dtype=f32, device=dev)
     j = torch.arange(n + 1, device=dev)
     jg = g * j.to(f32)
+    jgc = jg - gh  # the free modes' omega offset, folded as XLA folds it
     lane0 = (j == 0)[None, :]
     bext = torch.cat([torch.full((B, 1), PAD_B, dtype=torch.int32,
                                  device=dev), b.to(torch.int32)], dim=1)
     stc = st.to(torch.int32)[:, None]
     lbi = lb.to(torch.int64)[:, None]
 
-    # row 0 (quirk: start +2 acts as -1 on row 0)
-    row0_t2 = torch.where(stc == -2, -jg,
-                          torch.where((stc == 1) | (stc == 3), neg,
-                                      -h - jg))
-    p1 = torch.where(lane0 & ((stc == 1) | (stc == -1)), zero, neg)
-    p2 = torch.where(lane0, torch.where(stc == -2, zero, neg), row0_t2)
-    p3 = torch.where(lane0 & (stc == -3), zero, neg)
-    fin = torch.full((B, 3, n + 1) if want_row else (B, 3), NEG_INF,
+    if code == 0:
+        # row 0 (quirk: start +2 acts as -1 on row 0)
+        row0_t2 = torch.where(stc == -2, -jg,
+                              torch.where((stc == 1) | (stc == 3), neg,
+                                          -h - jg))
+        p1 = torch.where(lane0 & ((stc == 1) | (stc == -1)), zero, neg)
+        p2 = torch.where(lane0, torch.where(stc == -2, zero, neg), row0_t2)
+        p3 = torch.where(lane0 & (stc == -3), zero, neg)
+    else:  # T1 row 0 is free
+        p1 = torch.zeros((B, n + 1), dtype=f32, device=dev)
+        p2 = p3 = torch.full((B, n + 1), NEG_INF, dtype=f32, device=dev)
+    row_out = want_row or code > 0
+    fin = torch.full((B, 3, n + 1) if row_out else (B, 3), NEG_INF,
                      dtype=f32, device=dev)
+    if code == 2:  # last-column candidates: value and row, per table
+        colv = torch.full((B, 3), NEG_INF, dtype=f32, device=dev)
+        coli = torch.zeros((B, 3), dtype=torch.int64, device=dev)
+        col_live = lb >= 1
 
     def capture(fin, i, t1, t2, t3):
-        if want_row:
+        if row_out:
             return torch.where((la == i)[:, None, None],
                                torch.stack([t1, t2, t3], dim=1), fin)
         vals = torch.cat([t.gather(1, lbi) for t in (t1, t2, t3)], dim=1)
@@ -105,20 +144,26 @@ def _sweep_plain(a, b, la, lb, st, params, want_dirs, want_row=False):
         word = torch.zeros((B, n + 1), dtype=torch.int32, device=dev)
     for i in range(1, m + 1):
         fi = torch.tensor(float(i), dtype=f32, device=dev)
-        # column 0 of T3 (quirk: start +3 acts as -1 on column 0)
-        col0_3 = torch.where(stc == -3, -g * fi,
-                             torch.where((stc == 1) | (stc == 2), neg,
-                                         -h - g * fi))
+        if code == 0:
+            # column 0 of T3 (quirk: start +3 acts as -1 on column 0)
+            col0_3 = torch.where(stc == -3, -g * fi,
+                                 torch.where((stc == 1) | (stc == 2), neg,
+                                             -h - g * fi))
+        else:
+            col0_3 = -h - g * fi if code == 1 else neg
         mp12 = torch.maximum(p1, p2)
         mp3 = torch.maximum(mp12, p3)
         fb = torch.where(bext == a[:, i - 1:i].to(torch.int32), match,
                          mismatch)
-        t1 = torch.where(lane0, neg, fb + _shift(mp3, NEG_INF))
-        t3 = torch.where(lane0, col0_3,
-                         torch.maximum((mp12 - g) - h, p3 - g))
-        m13 = torch.maximum(t1, t3)
-        omega = torch.where(lane0, neg,
-                            ((jg + _shift(m13, NEG_INF)) - g) - h)
+        t1 = torch.where(lane0, zero if code == 2 else neg,
+                         fb + _shift(mp3, NEG_INF))
+        t3 = torch.where(lane0, col0_3, torch.maximum(mp12 - gh, p3 - g))
+        m13s = _shift(torch.maximum(t1, t3), NEG_INF)
+        if code == 0:
+            omega = (jg + m13s) - gh
+        else:
+            omega = jgc + m13s
+        omega = torch.where(lane0, neg, omega)
         t2 = torch.where(lane0, neg, torch.cummax(omega, dim=1).values - jg)
         if want_dirs:
             d1 = _shift(_argmax3(p1, p2, p3), 0)
@@ -135,8 +180,50 @@ def _sweep_plain(a, b, la, lb, st, params, want_dirs, want_row=False):
                     | (d3 << DIR_T3_SHIFT) | (ca_cur << 6) | (r_cur << 8))
             dirs[i] = word.to(torch.int16)
         fin = capture(fin, i, t1, t2, t3)
+        if code == 2:
+            # strictly better keeps the earliest row, per table
+            val = torch.cat([t.gather(1, lbi) for t in (t1, t2, t3)], dim=1)
+            better = (val > colv) & ((la >= i) & col_live)[:, None]
+            colv = torch.where(better, val, colv)
+            coli = torch.where(better, i, coli)
         p1, p2, p3 = t1, t2, t3
-    return (dirs.view(torch.uint16) if want_dirs else None), fin
+    dirs = dirs.view(torch.uint16) if want_dirs else None
+    if code == 0:
+        return dirs, fin
+    # the best over row la, columns 1..lb: value desc, column asc, table
+    live = (j[None, :] >= 1) & (j[None, :] <= lbi)
+    rv = torch.where(live[:, None, :], fin, neg)
+    v = rv.max(dim=2).values                       # (B, 3) per table
+    jx = j[None, None, :].expand(B, 3, -1)
+    jmin = torch.where(rv == v[:, :, None], jx, _BIG).min(dim=2).values
+    tabs = torch.arange(1, 4, device=dev)[None, :].expand(B, -1)
+    laf = la.to(torch.int64)[:, None]
+    if code == 1:
+        cv = v.max(dim=1).values
+        cjs = torch.where(v == cv[:, None], jmin, _BIG)
+        cj = cjs.min(dim=1).values
+        ct = torch.where(cjs[:, 0] == cj, 1, torch.where(cjs[:, 1] == cj, 2,
+                                                           3))
+        return dirs, torch.stack([cv, ct.to(f32), la.to(f32), cj.to(f32)],
+                                 dim=1)
+    # overlap: six candidates, value desc, anti-diagonal asc, table asc,
+    # column asc; (-inf, 1, 0, 0) when none is finite
+    cand_v = torch.cat([v, colv], dim=1)
+    cand_d = torch.cat([laf + jmin, coli + lbi], dim=1)
+    cand_t = torch.cat([tabs, tabs], dim=1)
+    cand_j = torch.cat([jmin, lbi.expand(B, 3)], dim=1)
+    vmax = cand_v.max(dim=1).values
+    mask = (cand_v == vmax[:, None]) & (cand_v > NEG_INF)
+    dmin = torch.where(mask, cand_d, _BIG).min(dim=1).values
+    mask = mask & (cand_d == dmin[:, None])
+    tmin = torch.where(mask, cand_t, _BIG).min(dim=1).values
+    mask = mask & (cand_t == tmin[:, None])
+    jmn = torch.where(mask, cand_j, _BIG).min(dim=1).values
+    dead = vmax <= NEG_INF
+    out = torch.stack([vmax, torch.where(dead, 1, tmin).to(f32),
+                       torch.where(dead, 0, dmin - jmn).to(f32),
+                       torch.where(dead, 0, jmn).to(f32)], dim=1)
+    return dirs, out
 
 
 def rowcb_fill_plain(a, b, la, lb, st, params):
@@ -144,104 +231,103 @@ def rowcb_fill_plain(a, b, la, lb, st, params):
     return _sweep_plain(a, b, la, lb, st, params, want_dirs=True)
 
 
-def score_fill_plain(a, b, la, lb, st, params):
-    """Plain PyTorch K3: finals (B, 3) float32."""
-    return _sweep_plain(a, b, la, lb, st, params, want_dirs=False)[1]
+def semiglobal_dirs_plain(a, b, la, lb, params):
+    """Plain PyTorch K10d: (dirs (m+1, B, n+1) uint16, best (B, 4))."""
+    return _sweep_plain(a, b, la, lb, torch.zeros_like(la), params,
+                        want_dirs=True, mode="semiglobal")
 
 
-def _check(a, b, la, lb, st):
-    if a.dtype != torch.uint8 or b.dtype != torch.uint8:
-        raise TypeError("a and b must be uint8 code tensors")
-    if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0]:
-        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must "
-                         f"be (B, m) and (B, n)")
-    B = a.shape[0]
-    for name, v in (("la", la), ("lb", lb), ("st", st)):
-        if v.dtype != torch.int32 or tuple(v.shape) != (B,):
-            raise ValueError(f"{name} must be ({B},) int32, got "
-                             f"{tuple(v.shape)} {v.dtype}")
-    for v in (a, b, la, lb, st):
-        if v.device != a.device:
-            raise ValueError("all inputs must be on one device")
-        if not v.is_contiguous():
-            raise ValueError("inputs must be contiguous")
-    if a.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {a.device}")
+def overlap_dirs_plain(a, b, la, lb, params):
+    """Plain PyTorch K11d: (dirs (m+1, B, n+1) uint16, best (B, 4))."""
+    return _sweep_plain(a, b, la, lb, torch.zeros_like(la), params,
+                        want_dirs=True, mode="overlap")
 
 
-def _launch_geometry(n, want_dirs):
+def _launch_geometry(n):
     """(C, threads, row_bytes, base_smem) for a bucket of width n."""
     ncol = n + 1
     C = max(4, -(-ncol // 1024))
     threads = -(-ncol // (32 * C)) * 32  # whole warps covering ncol
-    row_bytes = (ncol * (28 if want_dirs else 24) + 15) // 16 * 16
-    base_smem = 128 + (ncol + 15) // 16 * 16
+    row_bytes = (ncol * 28 + 15) // 16 * 16
+    base_smem = 512 + (ncol + 15) // 16 * 16
     return C, threads, row_bytes, base_smem
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(fn_name, n_ptrs):
-    """ctypes entry point of csrc/rowcb.cu: n_ptrs pointers, then B, m,
+def _entry():
+    """ctypes entry point of csrc/rowcb.cu: 8 pointers, then mode, B, m,
     n, C, threads, shared bytes, g, h, match, mismatch, stream."""
-    fn = getattr(_build.cuda_library("rowcb"), fn_name)
+    fn = _build.cuda_library("rowcb").rowcb_fill
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] + [ctypes.c_float] * 4
                    + [ctypes.c_void_p])
     return fn
 
 
-def _launch(fn_name, a, b, la, lb, st, params, want_dirs):
+def _launch(a, b, la, lb, st, params, mode):
     B, m = a.shape
     n = b.shape[1]
     dev = a.device
-    C, threads, row_bytes, smem = _launch_geometry(n, want_dirs)
+    C, threads, row_bytes, smem = _launch_geometry(n)
     scratch = None
     if smem + row_bytes <= SMEM_LIMIT:
         smem += row_bytes
     else:
         scratch = torch.empty(B * row_bytes, dtype=torch.uint8, device=dev)
-    fin = torch.full((B, 3), NEG_INF, dtype=torch.float32, device=dev)
-    dirs = None
-    ptrs = [a.data_ptr(), b.data_ptr(), la.data_ptr(), lb.data_ptr(),
-            st.data_ptr()]
-    if want_dirs:
-        dirs = torch.empty((m + 1, B, n + 1), dtype=torch.uint16,
-                           device=dev)
-        ptrs.append(dirs.data_ptr())
-    ptrs += [fin.data_ptr(), scratch.data_ptr() if scratch is not None
-             else None]
-    fn = _entry(fn_name, len(ptrs))
+    out = torch.full((B, 3 if mode == "global" else 4), NEG_INF,
+                     dtype=torch.float32, device=dev)
+    dirs = torch.empty((m + 1, B, n + 1), dtype=torch.uint16, device=dev)
     g, h, match, mismatch = params.astuple()
     with torch.cuda.device(dev):
-        err = fn(*ptrs, B, m, n, C, threads, smem, g, h, match, mismatch,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, fn_name)
-    return dirs, fin
+        err = _entry()(
+            a.data_ptr(), b.data_ptr(), la.data_ptr(), lb.data_ptr(),
+            st.data_ptr(), dirs.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            _build.MODES[mode], B, m, n, C, threads, smem, g, h, match,
+            mismatch, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, f"rowcb_fill({mode})")
+    return dirs, out
 
 
 def rowcb_fill(a, b, la, lb, st, params):
     """K1: dirs16+runs fill of a bucket; see the module docstring."""
-    _check(a, b, la, lb, st)
+    _build.check_bucket(a, b, la, lb, st)
     if a.device.type == "cpu":
         return rowcb_fill_plain(a, b, la, lb, st, params)
-    out = _launch("rowcb_fill", a, b, la, lb, st, params, True)
+    out = _launch(a, b, la, lb, st, params, "global")
     rowcb_fill.launches += 1
     return out
 
 
-def score_fill(a, b, la, lb, st, params):
-    """K3: score-only fill of a bucket, finals (B, 3) float32."""
-    _check(a, b, la, lb, st)
+def semiglobal_dirs(a, b, la, lb, params):
+    """K10d: semi-global dirs16+runs fill of a bucket; returns (dirs
+    (m+1, B, n+1) uint16, best (B, 4) float32 [score, end_table, end_i,
+    end_j])."""
+    st = torch.zeros_like(la)
+    _build.check_bucket(a, b, la, lb, st)
     if a.device.type == "cpu":
-        return score_fill_plain(a, b, la, lb, st, params)
-    _, fin = _launch("score_fill", a, b, la, lb, st, params, False)
-    score_fill.launches += 1
-    return fin
+        return semiglobal_dirs_plain(a, b, la, lb, params)
+    out = _launch(a, b, la, lb, st, params, "semiglobal")
+    semiglobal_dirs.launches += 1
+    return out
+
+
+def overlap_dirs(a, b, la, lb, params):
+    """K11d: overlap dirs16+runs fill of a bucket; returns (dirs (m+1, B,
+    n+1) uint16, best (B, 4) float32 [score, end_table, end_i, end_j])."""
+    st = torch.zeros_like(la)
+    _build.check_bucket(a, b, la, lb, st)
+    if a.device.type == "cpu":
+        return overlap_dirs_plain(a, b, la, lb, params)
+    out = _launch(a, b, la, lb, st, params, "overlap")
+    overlap_dirs.launches += 1
+    return out
 
 
 rowcb_fill.launches = 0
-score_fill.launches = 0
+semiglobal_dirs.launches = 0
+overlap_dirs.launches = 0
 
 
 def dirs_from_jax(dirs, la, lb):

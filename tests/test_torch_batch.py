@@ -162,7 +162,7 @@ def test_api_global_and_other_modes():
     scores, tables = api.score_pairs(pairs, device="cpu")
     assert np.array_equal(scores, [w.score for w in want])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.align("ACGT", "ACG", mode="semiglobal", device="cpu")
+        api.align("ACGT", "ACG", mode="banded", device="cpu")
     with pytest.raises(ValueError):
         api.align("ACGT", "ACG", mode="nonsense", device="cpu")
     # a bucket wider than long_threshold scores through the long fill

@@ -21,10 +21,13 @@ import cse305_parallel_sequence_alignment_torch as port
 import cse305_parallel_sequence_alignment_torch.__main__
 from cse305_parallel_sequence_alignment_torch import api, models
 from cse305_parallel_sequence_alignment_torch.models import (
-    BatchAligner, GotohAligner, LocalAlignmentResult, LocalBatchAligner)
+    BatchAligner, GotohAligner, LocalAlignmentResult, LocalBatchAligner,
+    OverlapBatchAligner, OverlapResult, SemiGlobalBatchAligner,
+    SemiGlobalResult)
 from cse305_parallel_sequence_alignment_torch.models import local_oracle
 from cse305_parallel_sequence_alignment_torch.ops import (
-    _build, cigar, device_walk, local, longrow, longstair, rowcb, traceback)
+    _build, cigar, device_walk, diag, local, longrow, longstair, rowcb,
+    traceback)
 from cse305_parallel_sequence_alignment_torch.parallel import partition
 from cse305_parallel_sequence_alignment_torch.native import walker
 from cse305_parallel_sequence_alignment_torch.utils import config, fasta
@@ -32,6 +35,10 @@ res = port.align("AGGA", "AGTGC", device="cpu")
 assert (res.aligned_a, res.aligned_b) == ("AG-GA", "AGTGC")
 loc = port.align("GGACGTAC", "TTACGTAT", mode="local", device="cpu")
 assert (loc.score, loc.cigar) == (10.0, "5M")
+sg = port.align("ACGT", "TTACGTT", mode="semiglobal", device="cpu")
+assert (sg.score, sg.cigar, sg.target_span) == (4.0, "4M", (3, 6))
+ov = port.align("GGACGT", "ACGTCC", mode="overlap", device="cpu")
+assert (ov.score, ov.a_span, ov.b_span) == (4.0, (3, 6), (1, 4))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",
                  "cse305_parallel_sequence_alignment_tpu")))
@@ -75,6 +82,9 @@ def test_cuda_aligner_refuses_cpu_host():
         GotohAligner().align("AGGA", "AGTGC")
     with pytest.raises(RuntimeError, match="CUDA"):
         api.score_pairs([("AGGA", "AGTGC")])
+    for mode in ("local", "semiglobal", "overlap"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            api.align_pairs([("AGGA", "AGTGC")], mode=mode)
     with pytest.raises(ValueError):
         BatchAligner(device="meta")
 

@@ -266,8 +266,8 @@ def test_aligner_matches_jax(params):
                     for x, y in pairs)
     assert al.last_chunks == sum(-(-c // 2) for c in sizes.values())
     assert al.last_chunks > len(sizes)
-    assert set(al.last_phases) == {"fill_ms", "walk_ms", "d2h_ms",
-                                   "build_ms"}
+    assert set(al.last_phases) == {"prep_ms", "fill_ms", "walk_ms",
+                                   "d2h_ms", "build_ms"}
     scores, ei, ej = al.score_batch(pairs)
     w_s, w_i, w_j = JaxLocalAligner(params=jax_params(p), backend="wavefront",
                                     **kw).score_batch(pairs)

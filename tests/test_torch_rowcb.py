@@ -101,7 +101,8 @@ def test_rowcb_matches_jax(case):
     for k in range(B):
         assert np.array_equal(dc[: la[k] + 1, k, : lb[k] + 1],
                               dn[: la[k] + 1, k, : lb[k] + 1])
-    # K3 is the same sweep without dirs
+    # K3, the anti-diagonal sweep, gives the same finals at these
+    # integer and dyadic parameters
     assert np.array_equal(
         score_fill(*port(a, b, la, lb, st), params).numpy(), fj)
 
