@@ -5,9 +5,10 @@
 
 Builds the port's kernels from ``cse305_parallel_sequence_alignment_torch/
 csrc`` (one compiler process per source, all at once) and drives its
-five main paths, global full alignment of many pairs, the balanced
-partition of one long pair, local (Smith-Waterman), semi-global and
-overlap alignment of many pairs:
+seven main paths, global full alignment of many pairs (match/mismatch
+and under a substitution matrix), the balanced partition of one long
+pair, banded global alignment of it, local (Smith-Waterman), semi-global
+and overlap alignment of many pairs:
 
 1. card, torch and CUDA versions; the kernels' build time;
 2. each kernel against its plain PyTorch version on the card, bit for
@@ -26,6 +27,18 @@ overlap alignment of many pairs:
    timed runs, phase split), ``score_batch`` agreeing with it, and 16
    pairs of 12-16 kb in ``traceback_mode="full"`` whose chains re-score
    to their scores;
+4a. K4d and K4s against their plain versions, bit for bit: 8 ragged
+    protein pairs with all six start types and one chunk of the matrix
+    path's largest bucket, timed; K4d under ``dna_matrix(1, 0)`` equal to
+    K1 at 256 x 2 kb (``[matrix-kernels]``);
+4b. the matrix path, counters set to 0 again: ``BatchAligner(matrix=
+    BLOSUM62)`` (g=1, h=11) ``align_batch`` on 4,096 protein pairs of
+    250-450 residues (seed 31; three of four B are A with 15%
+    substitutions and 2% single-residue indels, the fourth unrelated), one
+    warm-up and 3 timed runs, and ``score_batch``; gates outside the
+    window: ``score_batch`` = ``align_batch``, every full-traceback chain
+    re-scoring to its score under the table, the first 64 pairs equal to
+    ``BatchAligner(device="cpu")`` (``[matrix]``);
 5. the partition path at the dataset's scale, counters set to 0 again,
    ``PartitionedAligner(p=0).align`` alone: a 97,409-nt random pair with
    1% edits and 13,309 x 97,409 random; then, outside the launch
@@ -36,6 +49,18 @@ overlap alignment of many pairs:
    step 5 gave them (each bisection level's largest K7 job, or its whole
    K6 bucket), which set their times in the kernels line; each K7 level
    also timed as one K6 launch over its jobs;
+6a. K12d, K12s and K2 in band layout against their plain versions, bit
+    for bit: 256 related pairs x 2 kb at bands (64, 64) and (256, 256), 8
+    ragged pairs with every start type, a band too wide for shared
+    memory, and the banded path's own launch, every row of the 97 kb
+    pair at W = 1,329 (``[banded-kernels]``);
+6b. the banded path, counters set to 0 again: ``api.align(mode="banded",
+    band=64)`` on step 5's 97 kb pair and its copy (W = 1,329), one
+    warm-up and 2 timed runs, then ``BandedAligner`` for the phase split
+    and ``score``; gates: the runs equal, ``score`` = ``align``, rows that
+    give back the pair, the full-traceback chain re-scoring to the score,
+    and the score equal to the whole pair's K6 score unless the chain
+    touched the band's edge (``[banded]``);
 7. K9s/K9d local fills and K9w local walk against their plain versions,
    bit for bit: 8 ragged pairs up to 2 kb (repetitive tie pairs, an
    all-mismatch pair, m > n), and 256 x 2 kb of step 8's data, timed;
@@ -67,7 +92,7 @@ overlap alignment of many pairs:
     row or the last column;
 12. the CLI ``align``, ``partition``, ``local``, ``semiglobal`` and
     ``overlap`` in subprocesses;
-13. every kernel of each path launched in step 4, 5, 8, 10 or 11.
+13. every kernel of each path launched in step 4, 4b, 5, 6b, 8, 10 or 11.
 
 Prints a JSON line of the kernels (times, bounds, launches), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Any
@@ -89,6 +114,7 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 PKG = "cse305_parallel_sequence_alignment_torch"
 ACGT = np.frombuffer(b"ACGT", np.uint8)
+AMINO = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
 
 # H100 SXM datasheet peaks: float32 outside the tensor
 # cores, and HBM3
@@ -107,6 +133,15 @@ SW_DIRS_OPS = 26
 # per interior cell of csrc/diag.cu (K3, K10s, K11s): the base compare,
 # max3 + add, and two gap maxima of a max, two subtractions and a max
 DIAG_OPS = 12
+# per in-band cell of csrc/banded.cu, counted as above: K12s 16 (max3 +
+# add, two gap maxima of a max and two subtractions, omega's three
+# operations, two running maxima, the base compare, T2's three in pass 2),
+# K12d 31 (plus three argmax3 and the three h terms of the codes)
+BAND_OPS = 16
+BAND_DIRS_OPS = 31
+# NCBI BLAST's defaults for BLOSUM62: gap existence 11, extension 1 (a gap
+# of k costs h + g*k here)
+MATRIX_PARAMS = dict(g=1.0, h=11.0)
 NON_DYADIC = dict(g=0.3, h=1.7, match=1.0, mismatch=-0.7)
 
 
@@ -640,6 +675,7 @@ def check_partition(runs):
         t0 = time.perf_counter()
         whole, _ = BatchAligner().score_batch([(run["a"], run["b"])])
         t_whole = time.perf_counter() - t0
+        run["whole"] = float(whole[0])
         cs = score_chain(ea, eb, res.chain, ScoringParams())
         if not res.score == cs == float(whole[0]):
             raise RuntimeError(f"{name}: stitched score {res.score}, chain "
@@ -726,20 +762,23 @@ def phase_cli():
               flush=True)
 
 
-def mutate_core(rng, core, sub, indel):
+def mutate_core(rng, core, sub, indel, alphabet=ACGT):
     """Copy of ``core`` with substitutions at rate ``sub`` (always another
-    base) and single-base insertions and deletions at ``indel`` each
-    half."""
-    codes = np.searchsorted(ACGT, core)
+    letter of ``alphabet``) and single-letter insertions and deletions at
+    ``indel`` each half."""
+    k = len(alphabet)
+    lut = np.zeros(256, np.int64)
+    lut[alphabet] = np.arange(k)
+    codes = lut[core]
     n = len(core)
     subs = rng.random(n) < sub
-    codes[subs] = (codes[subs] + rng.integers(1, 4, int(subs.sum()))) % 4
+    codes[subs] = (codes[subs] + rng.integers(1, k, int(subs.sum()))) % k
     ev = rng.random(n) < indel
     dels = ev & (rng.random(n) < 0.5)
     ins = ev & ~dels
-    keep = ACGT[codes]
+    keep = alphabet[codes]
     out = np.insert(keep, np.nonzero(ins)[0],
-                    ACGT[rng.integers(0, 4, int(ins.sum()))])
+                    alphabet[rng.integers(0, k, int(ins.sum()))])
     shift = np.cumsum(ins) - ins  # insertions placed before each base
     return np.delete(out, np.nonzero(dels)[0] + shift[dels])
 
@@ -806,8 +845,9 @@ def path_chunks(al, pairs):
     enc_a, enc_b, buckets = al._prep(pairs)
     key, idxs = max(buckets.items(), key=lambda kv: len(kv[1]))
     step = al.chunk_size(key, len(idxs))
-    return (_bucket_arrays(enc_a, enc_b, idxs[:step], key),
-            _bucket_arrays(enc_a, enc_b, idxs[:al.max_batch], key))
+    matrix = getattr(al, "matrix", None)
+    return (_bucket_arrays(enc_a, enc_b, idxs[:step], key, matrix),
+            _bucket_arrays(enc_a, enc_b, idxs[:al.max_batch], key, matrix))
 
 
 def bucket_name(arrays):
@@ -1273,6 +1313,433 @@ def check_free(mode, data, out):
           f"{float(np.mean(s_sc)):.3f}", flush=True)
 
 
+def protein_data(count=4096, seed=31):
+    """Candidate protein pairs for homology verification: A has 250-450
+    residues of the 20 standard amino acids; for three of every four
+    pairs B is A with 15% substitutions and 2% single-residue indels, for
+    the fourth B is unrelated, 250-450 residues."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for k in range(count):
+        a = AMINO[rng.integers(0, 20, int(rng.integers(250, 451)))]
+        if k % 4 == 3:
+            b = AMINO[rng.integers(0, 20, int(rng.integers(250, 451)))]
+        else:
+            b = mutate_core(rng, a, 0.15, 0.02, AMINO)
+        pairs.append((a, b))
+    return pairs
+
+
+def table_rescore(ea, eb, chain, matrix, params):
+    """Score of a full global chain under a substitution matrix: its
+    diagonal points' table scores, h + g for a gap run's first point and
+    g each further one; exact for integer scores."""
+    c = np.asarray(list(chain), np.int64)
+    i, j, t = c[:, 0], c[:, 1], c[:, 2]
+    diag = t == 1
+    table = matrix.table()
+    f = table[matrix.encode(ea[i[diag] - 1].tobytes()),
+              matrix.encode(eb[j[diag] - 1].tobytes())].astype(np.float64)
+    opens = int((~diag & np.r_[True, t[1:] != t[:-1]]).sum())
+    gaps = int((~diag).sum())
+    return float(f.sum() - opens * (params.g + params.h)
+                 - (gaps - opens) * params.g)
+
+
+def phase_matrix_kernels(report, mdata):
+    """K4d and K4s against their plain versions on the card, bit for bit:
+    8 ragged protein pairs with all six start types, then one chunk of the
+    matrix path's largest bucket (K4d at an ``align_batch`` chunk, K4s at
+    a ``score_batch`` chunk), timed; and K4d under ``dna_matrix(1, 0)``
+    against K1 at 256 x 2 kb, where the two must agree on every cell."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+    from cse305_parallel_sequence_alignment_torch.models.batch import (
+        BatchAligner,
+        _bucket_arrays,
+    )
+    from cse305_parallel_sequence_alignment_torch.ops import rowcb
+    from cse305_parallel_sequence_alignment_torch.utils.matrices import (
+        BLOSUM62,
+        dna_matrix,
+    )
+
+    params = ScoringParams(**MATRIX_PARAMS)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(19)
+    lens = [(450, 450), (1, 300), (300, 1), (0, 5), (449, 250), (250, 449),
+            (333, 334), (400, 420)]
+    enc = [(AMINO[rng.integers(0, 20, x)], AMINO[rng.integers(0, 20, y)])
+           for x, y in lens]
+    ragged = _bucket_arrays([x for x, _ in enc], [y for _, y in enc],
+                            range(len(enc)), (450, 450), BLOSUM62)
+    # rows wider than shared memory: the global-scratch row buffers
+    wide_enc = [(AMINO[rng.integers(0, 20, x)], AMINO[rng.integers(0, 20, y)])
+                for x, y in ((300, 9000), (120, 8999))]
+    wide = _bucket_arrays([x for x, _ in wide_enc], [y for _, y in wide_enc],
+                          range(2), (300, 9000), BLOSUM62)
+    dirs_chunk, score_chunk = path_chunks(
+        BatchAligner(params=params, matrix=BLOSUM62), mdata)
+    table = torch.from_numpy(BLOSUM62.table()).to(dev)
+    cases = [("ragged 8 x <=450, six start types", ragged, ragged,
+              np.array([-1, -2, -3, 1, 2, 3, -1, -2], np.int32), False),
+             ("wide 2 x 300 x 9 k (global scratch)", wide, wide,
+              np.array([-1, -3], np.int32), False),
+             (f"matrix path chunks: K4d {bucket_name(dirs_chunk)}, K4s "
+              f"{bucket_name(score_chunk)}", dirs_chunk, score_chunk, None,
+              True)]
+    for name, dbucket, sbucket, st, big in cases:
+        la, lb = dbucket[2], dbucket[3]
+        if st is None:
+            st = np.full(len(la), -1, np.int32)
+        args = [torch.from_numpy(x).to(dev) for x in (*dbucket, st)]
+        sargs = args if not big else [
+            torch.from_numpy(x).to(dev) for x in
+            (*sbucket, np.full(len(sbucket[2]), -1, np.int32))]
+        reps = 3 if big else 1
+        (d_k, f_k), msd = timed(
+            lambda: rowcb.rowcb_fill(*args, params, table), reps)
+        (d_p, f_p), pmsd = timed(lambda: rowcb.matrix_dirs_plain(
+            *args, table, params), 1, warm=False)
+        ed = max(max_err(u16(d_k), u16(d_p)), max_err(f_k, f_p))
+        s_k, mss = timed(
+            lambda: rowcb.submat_score_fill(*sargs, table, params), reps)
+        s_p, pmss = timed(lambda: rowcb.submat_score_fill_plain(
+            *sargs, table, params), 1, warm=False)
+        # K4s and K4d agree on the pairs both chunks hold
+        es = max(max_err(s_k, s_p), max_err(s_k[: len(la)], f_k))
+        print(f"[matrix-kernels] {name}: K4d err {ed} {msd:.3f} ms (plain "
+              f"{pmsd:.1f} ms); K4s err {es} {mss:.3f} ms (plain "
+              f"{pmss:.1f} ms)", flush=True)
+        if ed or es:
+            raise RuntimeError(f"a matrix kernel disagrees with its plain "
+                               f"version on {name}: K4d {ed} K4s {es}")
+        for key, err in (("K4d", ed), ("K4s", es)):
+            report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
+        if big:
+            cells = float((la.astype(np.int64) * lb).sum())
+            s_cells = float((sbucket[2].astype(np.int64) * sbucket[3]).sum())
+            bounds = {"K4d": bound(DIRS_OPS * cells,
+                                   nbytes(*args, table, d_k, f_k)),
+                      "K4s": bound(SWEEP_OPS * s_cells,
+                                   nbytes(*sargs, table, s_k))}
+            for key, ms, pms in (("K4d", msd, pmsd), ("K4s", mss, pmss)):
+                rep = report[key]
+                rep["ms"], rep["plain_ms"] = ms, pms
+                rep["bound_ms"], rep["bound_by"] = bounds[key]
+            print(f"[matrix-kernels] {name}: K4d {cells / msd / 1e6:.1f} "
+                  f"GCUPS, K4s {s_cells / mss / 1e6:.1f} GCUPS; bounds "
+                  f"{ {k: round(v[0], 4) for k, v in bounds.items()} } ms",
+                  flush=True)
+        del d_k, d_p, args, sargs
+        torch.cuda.empty_cache()
+
+    # the table path and the match/mismatch path agree under dna(1, 0)
+    dna = dna_matrix(1.0, 0.0)
+    rng7 = np.random.default_rng(7)
+    B, L = 256, 2048
+    codes = rng7.integers(0, 4, (B, L)).astype(np.uint8)
+    codes_b = rng7.integers(0, 4, (B, L)).astype(np.uint8)
+    full = np.full(B, L, np.int32)
+    st = np.full(B, -1, np.int32)
+    t1 = [torch.from_numpy(x).to(dev) for x in (ACGT[codes], ACGT[codes_b],
+                                                full, full, st)]
+    t4 = [torch.from_numpy(x).to(dev) for x in (codes, codes_b, full, full,
+                                                st)]
+    dtab = torch.from_numpy(dna.table()).to(dev)
+    ident = ScoringParams()
+    (d1, f1), ms1 = timed(lambda: rowcb.rowcb_fill(*t1, ident), 3)
+    (d4, f4), ms4 = timed(lambda: rowcb.rowcb_fill(*t4, ident, dtab), 3)
+    e = max(max_err(u16(d1), u16(d4)), max_err(f1, f4))
+    cells = float(B * L * L)
+    print(f"[matrix-kernels] dna_matrix(1, 0) 256 x 2 kb: K4d vs K1 err {e}; "
+          f"K1 {ms1:.3f} ms ({cells / ms1 / 1e6:.1f} GCUPS), K4d "
+          f"{ms4:.3f} ms ({cells / ms4 / 1e6:.1f} GCUPS)", flush=True)
+    if e:
+        raise RuntimeError("K4d under dna_matrix(1, 0) differs from K1")
+    del d1, d4
+    torch.cuda.empty_cache()
+
+
+def phase_matrix_main(mdata, out):
+    """The matrix path alone, for the launch window: ``align_batch`` on
+    all of ``mdata`` (one warm-up, 3 timed runs) and ``score_batch``."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+    from cse305_parallel_sequence_alignment_torch.models.batch import (
+        BatchAligner,
+    )
+    from cse305_parallel_sequence_alignment_torch.utils.matrices import (
+        BLOSUM62,
+    )
+
+    al = BatchAligner(params=ScoringParams(**MATRIX_PARAMS), matrix=BLOSUM62)
+    al.align_batch(mdata)  # warm-up
+    walls, phases = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = al.align_batch(mdata)
+        walls.append(time.perf_counter() - t0)
+        phases.append(dict(al.last_phases))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = al.score_batch(mdata)
+    t_score = time.perf_counter() - t0
+    out.update(al=al, res=res, walls=walls, phases=phases, scores=scores,
+               t_score=t_score)
+
+
+def check_matrix(mdata, out):
+    """Gates of the matrix path; a run that fails one reports no speed."""
+    from cse305_parallel_sequence_alignment_torch.models.batch import (
+        BatchAligner,
+    )
+
+    al, res = out["al"], out["res"]
+    scores, tables = out["scores"]
+    if not (np.array_equal(scores, [r.score for r in res])
+            and np.array_equal(tables, [r.end_table for r in res])):
+        raise RuntimeError("matrix: score_batch disagrees with align_batch")
+    full = al.align_batch(mdata, traceback_mode="full")
+    for k, ((a, b), r) in enumerate(zip(mdata, full)):
+        ea, eb = (a, b) if len(a) <= len(b) else (b, a)  # parity swap
+        cs = table_rescore(ea, eb, r.chain, al.matrix, al.params)
+        if cs != r.score or r.score != res[k].score:
+            raise RuntimeError(f"matrix pair {k}: chain re-scores to {cs}, "
+                               f"score {r.score}")
+    cpu = BatchAligner(params=al.params, matrix=al.matrix, device="cpu")
+    for k, (g, w) in enumerate(zip(res[:64], cpu.align_batch(mdata[:64]))):
+        if (g.score, g.end_table, list(g.chain), g.aligned_a,
+                g.aligned_b) != (w.score, w.end_table, list(w.chain),
+                                 w.aligned_a, w.aligned_b):
+            raise RuntimeError(f"matrix pair {k}: align_batch differs from "
+                               f"BatchAligner(device='cpu')")
+    walls, phases = out["walls"], out["phases"]
+    med = sorted(range(3), key=lambda k: walls[k])[1]
+    cells = float(sum(len(x) * len(y) for x, y in mdata))
+    split = ", ".join(f"{k} {v:.2f}" for k, v in phases[med].items())
+    print(f"[matrix] align_batch {len(mdata)} protein pairs of 250-450, "
+          f"BLOSUM62 g=1 h=11: walls {[round(w * 1e3, 2) for w in walls]} "
+          f"ms, {len(mdata) / walls[med]:.1f} pairs/s, "
+          f"{cells / walls[med] / 1e9:.2f} cell GCUPS (median run); phases "
+          f"{split}; score_batch {out['t_score'] * 1e3:.2f} ms, "
+          f"{cells / out['t_score'] / 1e9:.2f} GCUPS", flush=True)
+    related = np.array([r.score for r in res[0::4]])
+    print(f"[matrix] gates held: score_batch = align_batch, {len(res)} full "
+          f"chains re-score to their scores under the table, first 64 pairs "
+          f"= BatchAligner(device='cpu'); mean score "
+          f"{float(scores.mean()):.2f} (related pairs {related.mean():.2f}, "
+          f"unrelated "
+          f"{float(scores[3::4].mean()):.2f})", flush=True)
+
+
+def band_cells(la, lb, w_lo, w_hi):
+    """In-band cells of each pair's rectangle, summed (rows 1..la)."""
+    total = 0
+    for x, y in zip(la.tolist(), lb.tolist()):
+        i = np.arange(1, x + 1)
+        lo = np.maximum(1, i - w_lo)
+        hi = np.minimum(y, i + w_hi)
+        total += int(np.maximum(hi - lo + 1, 0).sum())
+    return float(total)
+
+
+def phase_banded_kernels(report, runs):
+    """K12s, K12d and K2 in band layout against their plain versions on
+    the card, bit for bit: 256 related pairs x 2 kb at bands (64, 64)
+    and (256, 256), 8 ragged pairs with every start type, a band too wide
+    for shared memory, and the banded path's own launch, the whole 97 kb pair at W =
+    2 * (64 + |m - n|) + 1 on the tensors ``api.align(mode="banded",
+    band=64)`` gives the kernels, which sets the kernels line."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.core import (
+        ScoringParams,
+        end_table_choice,
+    )
+    from cse305_parallel_sequence_alignment_torch.models.banded import (
+        BandedAligner,
+    )
+    from cse305_parallel_sequence_alignment_torch.ops import (
+        banded,
+        device_walk,
+    )
+
+    params = ScoringParams()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(53)
+    B, L = 256, 2048
+    a = ACGT[rng.integers(0, 4, (B, L))]
+    b = np.stack([np.resize(mutate_core(rng, x, 0.01, 0.005), L) for x in a])
+    full = np.full(B, L, np.int32)
+    la = np.array([2048, 1, 700, 2048, 1500, 33, 1999, 0], np.int32)
+    lb = np.clip(la + np.array([0, 64, -64, -3, 17, 40, 49, 9]), 0,
+                 None).astype(np.int32)
+    ra, rb = bucket(rng, la, lb, 2048, int(lb.max()))
+    starts = np.array([-1, -2, -3, 1, 2, 3, -1, -2], np.int32)
+    wa, wb = bucket(rng, [3000, 2500], [12000, 11000], 3000, 12000)
+    wla = np.array([3000, 2500], np.int32)
+    wlb = np.array([12000, 11000], np.int32)
+
+    def on_card(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for v in arrays]
+
+    run = runs[0]
+    w = 64 + abs(len(run["a"]) - len(run["b"]))
+    rel = on_card(a, b, full, full, np.full(B, -1, np.int32))
+    cases = [("256 x 2 kb related, band (64, 64)", rel, 64, 64, False),
+             ("256 x 2 kb related, band (256, 256)", rel, 256, 256, False),
+             ("ragged 8 x <=2 kb, six start types, band (64, 64)",
+              on_card(ra, rb, la, lb, starts), 64, 64, False),
+             ("wide band (0, 9000), 2 x 3 k x 12 k (global scratch)",
+              on_card(wa, wb, wla, wlb, np.full(2, -1, np.int32)), 0, 9000,
+              False),
+             # the path's own tensors: api.align(mode="banded", band=64)
+             # builds this aligner and launches on its bucket of one
+             (f"banded path {len(run['a']):,} x {len(run['b']):,}, band "
+              f"({w}, {w}), every row",
+              BandedAligner(w_lo=w, w_hi=w)._bucket(run["a"], run["b"]), w,
+              w, True)]
+    for name, args, w_lo, w_hi, big in cases:
+        reps = 3 if big else 1
+        (d_k, f_k), msd = timed(
+            lambda: banded.banded_dirs(*args, w_lo, w_hi, params), reps)
+        (d_p, f_p), pmsd = timed(lambda: banded.banded_fill_plain(
+            *args, w_lo, w_hi, params, True), 1, warm=False)
+        ed = max(max_err(u16(d_k), u16(d_p)), max_err(f_k, f_p))
+        del d_p
+        s_k, mss = timed(
+            lambda: banded.banded_score(*args, w_lo, w_hi, params), reps)
+        s_p, pmss = timed(lambda: banded.banded_fill_plain(
+            *args, w_lo, w_hi, params, False)[1], 1, warm=False)
+        es = max(max_err(s_k, s_p), max_err(s_k, f_k))
+        t0 = torch.tensor([end_table_choice(*f, -1, params.h)[0]
+                           for f in f_k.cpu().tolist()], dtype=torch.int32,
+                          device=dev)
+        steps = int(args[2].max()) + int(args[3].max()) + 1
+        (w_k, u_k), msw = timed(lambda: device_walk.rle_walk(
+            d_k, args[2], args[3], t0, steps, band_lo=w_lo), reps)
+        (w_p, u_p), pmsw = timed(lambda: device_walk.rle_walk_plain(
+            d_k, args[2], args[3], t0, steps, w_lo), 1, warm=False)
+        ew = max(max_err(u16(w_k), u16(w_p)), max_err(u_k, u_p))
+        print(f"[banded-kernels] {name}: K12d err {ed} {msd:.3f} ms (plain "
+              f"{pmsd:.1f} ms); K12s err {es} {mss:.3f} ms (plain "
+              f"{pmss:.1f} ms); K2 band err {ew} rounds {int(u_k[0])} "
+              f"{msw:.3f} ms (plain {pmsw:.1f} ms)", flush=True)
+        if ed or es or ew:
+            raise RuntimeError(f"a banded kernel disagrees with its plain "
+                               f"version on {name}: K12d {ed} K12s {es} K2 "
+                               f"band {ew}")
+        for key, err in (("K12d", ed), ("K12s", es), ("K2b", ew)):
+            report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
+        if big:
+            cells = band_cells(args[2], args[3], w_lo, w_hi)
+            ins = nbytes(*args)
+            taken = int((u16(w_k) != 0).sum())  # one dirs cell per round
+            bounds = {"K12d": bound(BAND_DIRS_OPS * cells,
+                                    ins + nbytes(d_k, f_k)),
+                      "K12s": bound(BAND_OPS * cells, ins + nbytes(s_k)),
+                      "K2b": bound(0, 2 * taken + nbytes(args[2], args[3],
+                                                         t0, w_k, u_k))}
+            for key, ms, pms in (("K12d", msd, pmsd), ("K12s", mss, pmss),
+                                 ("K2b", msw, pmsw)):
+                rep = report[key]
+                rep["ms"], rep["plain_ms"] = ms, pms
+                rep["bound_ms"], rep["bound_by"] = bounds[key]
+            print(f"[banded-kernels] {name}: {cells:.0f} band cells, K12d "
+                  f"{cells / msd / 1e6:.1f} GCUPS, K12s "
+                  f"{cells / mss / 1e6:.1f} GCUPS; bounds "
+                  f"{ {k: round(v[0], 4) for k, v in bounds.items()} } ms",
+                  flush=True)
+        del d_k
+        torch.cuda.empty_cache()
+
+
+def phase_banded_main(runs, out):
+    """The banded path alone, for the launch window: ``api.align(mode=
+    "banded", band=64)`` on the 97,409-nt pair and its edited copy (one
+    warm-up, 2 timed runs), then the same alignment through a
+    ``BandedAligner`` for its phase split, and its ``score``."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch import api
+    from cse305_parallel_sequence_alignment_torch.models.banded import (
+        BandedAligner,
+    )
+
+    run = runs[0]
+    a, b = run["a"], run["b"]
+    api.align(a, b, mode="banded", band=64)  # warm-up
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = api.align(a, b, mode="banded", band=64)
+        walls.append(time.perf_counter() - t0)
+    w = 64 + abs(len(a) - len(b))
+    al = BandedAligner(w_lo=w, w_hi=w)
+    again = al.align(a, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    score = al.score(a, b)
+    t_score = time.perf_counter() - t0
+    out.update(res=res, again=again, walls=walls, phases=al.last_phases,
+               score=score, t_score=t_score, w=w)
+
+
+def check_banded(report, runs, out):
+    """Gates of the banded path: both runs equal, ``score`` = ``align``,
+    rows that give back the pair, the chain re-scoring to the score (its
+    ``traceback_mode="full"`` twin, whose tail it is: the parity chain
+    drops its first point), and, unless the chain touched the band's
+    edge, the banded score = the whole pair's K6 score."""
+    from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+    from cse305_parallel_sequence_alignment_torch.models.banded import (
+        BandedAligner,
+    )
+    from cse305_parallel_sequence_alignment_torch.parallel.partition import (
+        score_chain,
+    )
+
+    run, res, again = runs[0], out["res"], out["again"]
+    a, b, w = run["a"], run["b"], out["w"]
+    if (res.score, list(res.chain)) != (again.score, list(again.chain)) or \
+            out["score"] != res.score:
+        raise RuntimeError("banded: api.align, BandedAligner.align and "
+                           "BandedAligner.score disagree")
+    if (res.aligned_a.replace("-", "") != a.tobytes().decode()
+            or res.aligned_b.replace("-", "") != b.tobytes().decode()):
+        raise RuntimeError("banded: rows do not give back the pair")
+    full = BandedAligner(w_lo=w, w_hi=w, traceback_mode="full").align(a, b)
+    chain, tail = list(full.chain), list(res.chain)
+    cs = score_chain(a, b, chain, ScoringParams())
+    if not cs == full.score == res.score or \
+            chain[len(chain) - len(tail):] != tail:
+        raise RuntimeError(f"banded: the full chain re-scores to {cs}, "
+                           f"score {res.score}, or the chain is not its "
+                           f"tail")
+    if not res.edge_touched and res.score != run["whole"]:
+        raise RuntimeError(f"banded score {res.score} differs from the "
+                           f"whole-pair K6 score {run['whole']}")
+    phases = ", ".join(f"{k} {v:.2f}" for k, v in out["phases"].items())
+    walls = [round(x * 1e3, 1) for x in out["walls"]]
+    ms = {k: round(report[k]["ms"], 3) for k in ("K12d", "K12s", "K2b")}
+    print(f"[banded] api.align(mode='banded', band=64) {len(a):,} x "
+          f"{len(b):,}, W = {2 * w + 1}: walls {walls} ms; BandedAligner "
+          f"phases {phases}; score {out['t_score'] * 1e3:.1f} ms; kernels "
+          f"at this shape (one CTA) {ms} ms", flush=True)
+    gate = ("edge_touched, so the K6 comparison is waived" if
+            res.edge_touched else
+            f"score {res.score} = whole-pair K6 score {run['whole']}")
+    print(f"[banded] gates held: {gate}; align = score; the full chain "
+          f"re-scores to the score and ends in the chain; rows give back "
+          f"the pair; chain length {len(res.chain)}", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1286,6 +1753,7 @@ def main():
     )
     from cse305_parallel_sequence_alignment_torch.ops import (
         _build,
+        banded,
         device_walk,
         diag,
         local,
@@ -1369,10 +1837,36 @@ def main():
                      replaces="cse305_parallel_sequence_alignment_tpu/ops/"
                               "pallas_overlap.py:54",
                      fn=rowcb.overlap_dirs),
+        "K4s": dict(name="submat_score_fill (K4s substitution-matrix score "
+                         "fill)", route="cuda", source=f"{src}/rowcb.cu",
+                    replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                             "pallas_fill.py:1110",
+                    fn=rowcb.submat_score_fill),
+        "K4d": dict(name="rowcb_fill with a table (K4d substitution-matrix "
+                         "dirs fill)", route="cuda", source=f"{src}/rowcb.cu",
+                    replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                             "pallas_rowcb.py:244",
+                    fn=rowcb.rowcb_fill, counter="table_launches"),
+        "K12s": dict(name="banded_score (K12s band score fill)",
+                     route="cuda", source=f"{src}/banded.cu",
+                     replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                              "pallas_banded.py:42",
+                     fn=banded.banded_score),
+        "K12d": dict(name="banded_dirs (K12d band dirs16+runs fill)",
+                     route="cuda", source=f"{src}/banded.cu",
+                     replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                              "pallas_banded.py:161",
+                     fn=banded.banded_dirs),
+        "K2b": dict(name="rle_walk with band_lo (K2 run-length walk, band "
+                         "layout)", route="cuda", source=f"{src}/walk.cu",
+                    replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                             "device_walk.py:163",
+                    fn=device_walk.rle_walk, counter="band_launches"),
     }
     for rep in report.values():
         # no single PyTorch call computes a Gotoh or SW fill or walk
         rep.update(max_abs_err=0.0, launches=0, library_ms=None)
+        rep.setdefault("counter", "launches")
     phase_kernels(report)
     phase_numerics(report)
     phase_long_kernels(report)
@@ -1382,10 +1876,11 @@ def main():
         """Drive one main path with every counter at 0 first; each of
         ``kernels`` must have launched in it."""
         for rep in report.values():
-            rep["fn"].launches = 0
+            setattr(rep["fn"], rep["counter"], 0)
         drive()
         torch.cuda.synchronize()
-        counts = {k: rep["fn"].launches for k, rep in report.items()}
+        counts = {k: getattr(rep["fn"], rep["counter"])
+                  for k, rep in report.items()}
         print(f"[counters] {name} path launches {counts}", flush=True)
         missing = [k for k in kernels if counts[k] < 1]
         if missing:
@@ -1394,11 +1889,24 @@ def main():
             rep["launches"] += counts[k]
 
     run_path("global", phase_main_path, ("K1", "K2", "K3"))
+    mdata = protein_data()
+    phase_matrix_kernels(report, mdata)
+    matrix_out = {}
+    run_path("matrix", lambda: phase_matrix_main(mdata, matrix_out),
+             ("K4s", "K4d", "K2"))
+    check_matrix(mdata, matrix_out)
+    del mdata, matrix_out
     runs = []
     run_path("partition", lambda: phase_partition(report, runs),
              ("K1", "K2", "K6", "K7"))
     check_partition(runs)
     phase_long_main(report, runs)
+    phase_banded_kernels(report, runs)
+    banded_out = {}
+    run_path("banded", lambda: phase_banded_main(runs, banded_out),
+             ("K12s", "K12d", "K2b"))
+    check_banded(report, runs, banded_out)
+    del banded_out
     data = local_data()
     phase_local_kernels(report, data)
     local_out = {}

@@ -2,23 +2,28 @@
 
 A second package beside ``cse305_parallel_sequence_alignment_tpu`` (the
 JAX reference, which it never imports). The ported slices are global
-Gotoh alignment of many pairs, the balanced partition of one long pair,
-and local (Smith-Waterman), semi-global and overlap alignment of many
-pairs, on an NVIDIA H100:
+Gotoh alignment of many pairs (match/mismatch or a substitution
+matrix), banded global alignment, the balanced partition of one long
+pair, and local (Smith-Waterman), semi-global and overlap alignment of
+many pairs, on an NVIDIA H100:
 
-- ``core``      scoring parameters, boundary semantics, codec, results
+- ``core``      scoring parameters, substitution matrices, boundary
+                semantics, codec, results
 - ``ops``       CUDA kernels (``csrc/``) with their plain PyTorch
                 versions: K1 dirs16+runs fill, K3 score fill, K2
-                run-length walk, K6 long fill, K7 single-job last row,
+                run-length walk (row and band layout), K4d/K4s
+                substitution-matrix fills, K12s/K12d band fills, K6
+                long fill, K7 single-job last row,
                 K9s/K9d local fills, K9w local walk, K10s/K10d
                 semi-global and K11s/K11d overlap fills
 - ``models``    ``BatchAligner`` (global mode), ``GotohAligner``,
+                ``BandedAligner``,
                 ``LocalBatchAligner`` (local mode, CIGARs),
                 ``SemiGlobalBatchAligner`` and ``OverlapBatchAligner``
 - ``parallel``  ``PartitionedAligner`` (balanced partition)
 - ``native``    host replay, render and chain builds (built from
                 ``csrc/tsalib.cpp``)
-- ``utils``     run configuration, FASTA input
+- ``utils``     run configuration, FASTA input, BLOSUM62
 - ``api``       ``align``, ``align_pairs``, ``score_pairs``
 
 Nothing heavy is imported until used: ``torch`` loads with ``models``

@@ -1,22 +1,23 @@
-"""Convenience API, global, local, semi-global, overlap and partitioned
-modes (the slices of the JAX package's ``api`` that are ported so far):
+"""Convenience API over every alignment mode (the JAX package's
+``api``):
 
     align(a, b)                           # one global alignment
     align(a, b, mode="local")             # SW + CIGAR
     align(a, b, mode="semiglobal")        # fit a into b
     align(a, b, mode="overlap")           # dovetail
+    align(a, b, mode="banded", band=64)   # banded global
     align(a, b, mode="partitioned", p=8)  # long-pair decomposition
     align_pairs(pairs, mode=...)          # batched full alignments
     score_pairs(pairs, mode=...)          # batched scores
 
 Every call takes ``device`` ("cuda" by default) and the keyword
 arguments of its aligner (``BatchAligner``, ``LocalBatchAligner``,
-``SemiGlobalBatchAligner``, ``OverlapBatchAligner``, or
-``PartitionedAligner`` for "partitioned"). Local mode scores with
-``LOCAL_PARAMS`` and the semi-global and overlap modes with ``g=1, h=2,
-match=1, mismatch=-1`` unless ``params`` is given, as the JAX package
-does. Banded mode raises ``NotImplementedError`` naming the ROADMAP item
-that ports it.
+``SemiGlobalBatchAligner``, ``OverlapBatchAligner``, or, in ``align``
+only, ``BandedAligner`` for "banded" and ``PartitionedAligner`` for
+"partitioned"). Local mode scores with ``LOCAL_PARAMS`` and the
+semi-global and overlap modes with ``g=1, h=2, match=1, mismatch=-1``
+unless ``params`` is given, as the JAX package does. Banded mode widens
+``band`` (64 by default) by |m - n| on both sides.
 """
 
 from __future__ import annotations
@@ -25,19 +26,13 @@ from cse305_parallel_sequence_alignment_torch.core import ScoringParams
 
 _MODES = ("global", "local", "semiglobal", "overlap", "banded",
           "partitioned")
-_LATER = {
-    "banded": "queue 1 item 12 (kernel K12)",
-}
 
 
 def _aligner(mode, params, **kw):
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode!r}; pick from {_MODES}")
-    if mode == "partitioned":
-        raise ValueError("mode 'partitioned' is not batchable; use align()")
-    if mode in _LATER:
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported yet: ROADMAP {_LATER[mode]}")
+    if mode in ("banded", "partitioned"):
+        raise ValueError(f"mode {mode!r} is not batchable; use align()")
     if mode == "local":
         from cse305_parallel_sequence_alignment_torch.models.local import (
             LOCAL_PARAMS,
@@ -61,10 +56,18 @@ def _aligner(mode, params, **kw):
     return BatchAligner(params=params or ScoringParams(), **kw)
 
 
-def align(a, b, mode="global", params=None, p=None, **kw):
+def align(a, b, mode="global", params=None, band=None, p=None, **kw):
     """One pairwise alignment; returns the mode's result object
-    (``AlignmentResult``, ``LocalAlignmentResult``, ``SemiGlobalResult``
-    or ``OverlapResult``)."""
+    (``AlignmentResult``, with ``edge_touched`` in banded mode,
+    ``LocalAlignmentResult``, ``SemiGlobalResult`` or
+    ``OverlapResult``)."""
+    if mode == "banded":
+        from cse305_parallel_sequence_alignment_torch.models.banded import (
+            BandedAligner,
+        )
+        w = (band if band is not None else 64) + abs(len(a) - len(b))
+        return BandedAligner(params=params or ScoringParams(), w_lo=w,
+                             w_hi=w, **kw).align(a, b)
     if mode == "partitioned":
         from cse305_parallel_sequence_alignment_torch.parallel.partition \
             import PartitionedAligner

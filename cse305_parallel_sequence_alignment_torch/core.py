@@ -21,6 +21,7 @@ anchored at table |t|".
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 
@@ -61,6 +62,87 @@ class ScoringParams:
         in which the JAX package's parameters cross into the port)."""
         g, h, match, mismatch = (float(x) for x in np.asarray(arr).ravel())
         return cls(g=g, h=h, match=match, mismatch=mismatch)
+
+
+@dataclasses.dataclass(frozen=True)
+class SubstitutionMatrix:
+    """Full KxK substitution scoring over an explicit alphabet (the JAX
+    package's ``core.SubstitutionMatrix``, same names and values).
+
+    Generalises the reference's match/mismatch ``f()``
+    (subproblem_alignment.h:83-88) to arbitrary per-pair scores.
+    ``matrix`` is a row-major tuple of K*K floats. Code K (one past the
+    alphabet) is the padding code; ``table()`` appends a pad row and
+    column of ``PAD_SCORE``, which only padded cells ever read.
+    """
+
+    alphabet: str
+    matrix: tuple
+
+    PAD_SCORE = -1e9
+
+    def __post_init__(self):
+        k = len(self.alphabet)
+        if len(self.matrix) != k * k:
+            raise ValueError(
+                f"matrix needs {k * k} entries for alphabet "
+                f"{self.alphabet!r}, got {len(self.matrix)}")
+
+    @classmethod
+    def from_array(cls, alphabet, arr):
+        arr = np.asarray(arr, dtype=np.float32)
+        return cls(alphabet=alphabet,
+                   matrix=tuple(float(x) for x in arr.reshape(-1)))
+
+    @classmethod
+    def dna(cls, match=1.0, mismatch=0.0, alphabet="ACGTN"):
+        k = len(alphabet)
+        arr = np.full((k, k), mismatch, np.float32)
+        np.fill_diagonal(arr, match)
+        return cls.from_array(alphabet, arr)
+
+    @property
+    def k(self):
+        return len(self.alphabet)
+
+    @property
+    def pad_code(self):
+        return self.k
+
+    @functools.cached_property
+    def _lut(self):
+        """Byte -> code lookup, 255 for a byte outside the alphabet."""
+        lut = np.full(256, 255, np.uint8)
+        for c, ch in enumerate(self.alphabet.encode("ascii")):
+            lut[ch] = c
+        return lut
+
+    def encode(self, s):
+        """Sequence -> uint8 codes 0..K-1; unknown characters raise."""
+        if isinstance(s, str):
+            s = s.encode("ascii")
+        codes = self._lut[np.frombuffer(bytes(s), np.uint8)]
+        if np.any(codes == 255):
+            bad = bytes(sorted(set(
+                bytes(s)[i] for i in np.nonzero(codes == 255)[0])))
+            raise ValueError(f"characters {bad!r} not in alphabet "
+                             f"{self.alphabet!r}")
+        return codes
+
+    def table(self):
+        """(K+1, K+1) float32 lookup with the pad row/column."""
+        k = self.k
+        t = np.full((k + 1, k + 1), self.PAD_SCORE, np.float32)
+        t[:k, :k] = np.asarray(self.matrix, np.float32).reshape(k, k)
+        return t
+
+
+def matrix_from_jax(m):
+    """The port's ``SubstitutionMatrix`` of a JAX package one, carried
+    across by its ``alphabet`` and ``matrix`` fields (the JAX package is
+    not imported)."""
+    return SubstitutionMatrix(alphabet=str(m.alphabet),
+                              matrix=tuple(float(x) for x in m.matrix))
 
 
 class LazyChain:

@@ -1,6 +1,6 @@
 // Gotoh row-sweep dirs fills for the H100 (sm_90a), plain C interface.
 //
-// One template, three modes (wrappers in ops/rowcb.py):
+// One template, three modes and two flags (wrappers in ops/rowcb.py):
 //   mode 0, K1 rowcb_fill: replaces the TPU kernel _rowcb_kernel
 //     (cse305_parallel_sequence_alignment_tpu/ops/pallas_rowcb.py:126) with
 //     want_dirs=True, with_runs=True, k1=0: the uint16 "dirs16+runs" cell of
@@ -12,6 +12,16 @@
 //   mode 2, K11d: replaces _ov_rowdirs_kernel (ops/pallas_overlap.py:54,
 //     with_runs=True, perm=False): T1 = 0 on row 0 and column 0, the best
 //     over the last row and the last column.
+//   TABLE (mode 0 only), K4d: the k1 > 0 branch of _rowcb_kernel
+//     (ops/pallas_rowcb.py:244), K1 with f(A[i], B[j]) = table[A[i]][B[j]]
+//     from a (k1, k1) float32 substitution table (pad code k1 - 1) in
+//     place of match/mismatch. The TPU kernel resolves f with k1 - 1 lane
+//     selects over a host-gathered query profile; here the table sits in
+//     shared memory (2.5 KB for BLOSUM62) and each cell does one gather.
+//   TABLE without DIRS, K4s: replaces _submat_kernel
+//     (ops/pallas_fill.py:1110), the same sweep storing no dirs and no run
+//     state, so its finals are K4d's finals bit for bit.
+// K1, K10d and K11d are the instantiations with TABLE = false, DIRS = true.
 // The score-only K3 is the anti-diagonal kernel of csrc/diag.cu.
 //
 // Design. One CTA per pair; the row loop runs inside the block (it takes
@@ -109,14 +119,14 @@ struct Rows {
     __device__ uint16_t* P(int buf) const { return p + (size_t)buf * ncol; }
 };
 
-template <int MODE>
+template <int MODE, bool TABLE, bool DIRS>
 __global__ void __launch_bounds__(kMaxThreads)
 sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
              const int32_t* __restrict__ la, const int32_t* __restrict__ lb,
              const int32_t* __restrict__ st, uint16_t* __restrict__ dirs,
              float* __restrict__ out, char* __restrict__ scratch, int B,
              int m, int n, int C, float g, float h, float match,
-             float mismatch) {
+             float mismatch, const float* __restrict__ table, int k1) {
     extern __shared__ __align__(16) char smem[];
     const int pair = blockIdx.x;
     const int ncol = n + 1;
@@ -127,13 +137,17 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
 
     // shared layout: warp totals (32 f32) and, after the rows, the best
     // reduction (4 x 32 words) in the 512-byte head | b_ext (ncol u8,
-    // 16-aligned) | row buffers when they fit (else in global scratch)
+    // 16-aligned) | the substitution table (TABLE: k1 * k1 f32, 16-aligned)
+    // | row buffers when they fit (else in global scratch)
     float* wsum = reinterpret_cast<float*>(smem);
     uint8_t* bext = reinterpret_cast<uint8_t*>(smem + kHeadBytes);
     const size_t bext_bytes = ((size_t)ncol + 15) & ~(size_t)15;
-    const size_t row_bytes = (size_t)ncol * 28;
+    float* tab = reinterpret_cast<float*>(smem + kHeadBytes + bext_bytes);
+    const size_t tab_bytes =
+        TABLE ? (((size_t)k1 * k1 * 4 + 15) & ~(size_t)15) : 0;
+    const size_t row_bytes = (size_t)ncol * (DIRS ? 28 : 24);
     char* rowmem = scratch ? scratch + (size_t)pair * ((row_bytes + 15) & ~(size_t)15)
-                           : smem + kHeadBytes + bext_bytes;
+                           : smem + kHeadBytes + bext_bytes + tab_bytes;
     Rows R{reinterpret_cast<float*>(rowmem),
            reinterpret_cast<uint16_t*>(rowmem + (size_t)ncol * 24), ncol};
 
@@ -141,8 +155,11 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     const int lA = la[pair], lB = lb[pair];
     const uint8_t* arow = a + (size_t)pair * m;
     const uint8_t* brow = b + (size_t)pair * n;
+    // column 0's sentinel 255 never indexes the table: f is read at j >= 1
     for (int j = tid; j < ncol; j += blockDim.x)
         bext[j] = j == 0 ? (uint8_t)255 : brow[j - 1];
+    if (TABLE)
+        for (int k = tid; k < k1 * k1; k += blockDim.x) tab[k] = table[k];
 
     const int c0 = tid * C;
     const int c1 = min(c0 + C, ncol);
@@ -168,8 +185,10 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
         R.T(0, 0)[j] = r1;
         R.T(0, 1)[j] = r2;
         R.T(0, 2)[j] = r3;
-        R.P(0)[j] = 0;
-        drow[j] = 0;
+        if (DIRS) {
+            R.P(0)[j] = 0;
+            drow[j] = 0;
+        }
         if (lA == 0) {
             if (MODE == 0 && j == lB) {
                 fin[0] = r1;
@@ -194,6 +213,7 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
         float* Q2 = R.T(cur, 1);
         float* Q3 = R.T(cur, 2);
         const int ac = arow[i - 1];
+        const float* frow = tab + (TABLE ? ac * k1 : 0);  // f(A[i], .)
         const float fi = (float)i;
         // column 0 (quirk: start +3 acts as -1 on column 0)
         float col0_1 = NEG, col0_3 = NEG;
@@ -218,7 +238,9 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
                 if (jl > 0) {
                     const float mp3ll = fmaxf(fmaxf(P1[jl - 1], P2[jl - 1]),
                                               P3[jl - 1]);
-                    const float fbl = bext[jl] == ac ? match : mismatch;
+                    const float fbl =
+                        TABLE ? frow[bext[jl]]
+                              : (bext[jl] == ac ? match : mismatch);
                     t1l = fbl + mp3ll;
                     t3l = fmaxf(q12 - gh, q3v - g);
                 }
@@ -231,7 +253,8 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
                 const float mp3 = fmaxf(mp12, p3);
                 float t1 = col0_1, t3 = col0_3, omega = NEG;
                 if (j > 0) {
-                    const float fb = bext[j] == ac ? match : mismatch;
+                    const float fb = TABLE ? frow[bext[j]]
+                                           : (bext[j] == ac ? match : mismatch);
                     const float jg = g * (float)j;
                     t1 = fb + lm3;
                     t3 = fmaxf(mp12 - gh, p3 - g);
@@ -261,7 +284,7 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
         // pass 2: T2, directions, run lengths, finals and end candidates
         if (c0 < c1) {
             int am3l = 0, d2l = 0, pwl = 0;  // column 0 sees zeros
-            if (c0 > 0) {
+            if (DIRS && c0 > 0) {
                 const int jl = c0 - 1;
                 am3l = argmax3(P1[jl], P2[jl], P3[jl]);
                 pwl = R.P(prv)[jl];
@@ -275,26 +298,28 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
                 const float pm = fmaxf(Q2[j], excl);
                 const float t2 = j == 0 ? NEG : pm - g * (float)j;
                 Q2[j] = t2;
-                const float p1 = P1[j], p2 = P2[j], p3 = P3[j];
                 const float t1 = Q1[j], t3 = Q3[j];
-                const int d1 = am3l;
-                const int d2 = d2l;
-                const int d3 = argmax3(p1, p2, p3 + h);
-                const int r_prev = pwl >> 8;
-                const int ca_prev = (pwl >> 6) & 3;
-                int r_cur = 0, ca_cur = d1;
-                if (d1 == 0) {
-                    r_cur = min(r_prev + 1, kRunCap);
-                    ca_cur = r_prev >= kRunCap ? 0 : ca_prev;
+                if (DIRS) {
+                    const float p1 = P1[j], p2 = P2[j], p3 = P3[j];
+                    const int d1 = am3l;
+                    const int d2 = d2l;
+                    const int d3 = argmax3(p1, p2, p3 + h);
+                    const int r_prev = pwl >> 8;
+                    const int ca_prev = (pwl >> 6) & 3;
+                    int r_cur = 0, ca_cur = d1;
+                    if (d1 == 0) {
+                        r_cur = min(r_prev + 1, kRunCap);
+                        ca_cur = r_prev >= kRunCap ? 0 : ca_prev;
+                    }
+                    const uint16_t word = (uint16_t)(
+                        d1 | (d2 << 2) | (d3 << 4) | (ca_cur << 6) |
+                        (r_cur << 8));
+                    QW[j] = word;
+                    dout[j] = word;
+                    am3l = argmax3(p1, p2, p3);
+                    d2l = argmax3(t1 - h, t2, t3 - h);
+                    pwl = PW[j];
                 }
-                const uint16_t word = (uint16_t)(
-                    d1 | (d2 << 2) | (d3 << 4) | (ca_cur << 6) |
-                    (r_cur << 8));
-                QW[j] = word;
-                dout[j] = word;
-                am3l = argmax3(p1, p2, p3);
-                d2l = argmax3(t1 - h, t2, t3 - h);
-                pwl = PW[j];
                 if (MODE == 0) {
                     if (i == lA && j == lB) {
                         fin[0] = t1;
@@ -349,18 +374,19 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     }
 }
 
-template <int MODE>
+template <int MODE, bool TABLE, bool DIRS>
 int launch(const uint8_t* a, const uint8_t* b, const int32_t* la,
            const int32_t* lb, const int32_t* st, uint16_t* dirs, float* out,
            char* scratch, int B, int m, int n, int C, int threads,
            size_t smem, float g, float h, float match, float mismatch,
-           cudaStream_t stream) {
-    auto kern = sweep_kernel<MODE>;
+           const float* table, int k1, cudaStream_t stream) {
+    auto kern = sweep_kernel<MODE, TABLE, DIRS>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     kern<<<B, threads, smem, stream>>>(a, b, la, lb, st, dirs, out, scratch,
-                                       B, m, n, C, g, h, match, mismatch);
+                                       B, m, n, C, g, h, match, mismatch,
+                                       table, k1);
     return (int)cudaGetLastError();
 }
 
@@ -368,32 +394,49 @@ int launch(const uint8_t* a, const uint8_t* b, const int32_t* la,
 
 extern "C" {
 
-// mode 0 (K1), 1 (K10d) or 2 (K11d). dirs: (m+1, B, n+1) uint16; out:
-// (B, 3) f32 finals in mode 0, (B, 4) f32 [score, end_table, end_i, end_j]
-// in modes 1 and 2; a: (B, m) u8; b: (B, n) u8; la/lb/st: (B,) i32 (st
-// read in mode 0 only); C columns per thread, threads a multiple of 32
-// with threads * C >= n + 1; smem: 512 + (n+1 rounded up to 16) bytes,
+// mode 0 (K1), 1 (K10d) or 2 (K11d); with a table (mode 0 only) K4d, or
+// K4s when want_dirs is 0 (dirs unused, may be null). dirs: (m+1, B, n+1)
+// uint16; out: (B, 3) f32 finals in mode 0, (B, 4) f32 [score, end_table,
+// end_i, end_j] in modes 1 and 2; a: (B, m) u8; b: (B, n) u8 (codes below
+// k1 with a table); la/lb/st: (B,) i32 (st read in mode 0 only); table:
+// (k1, k1) f32 row-major, 2 <= k1 <= 255, or null; C columns per thread,
+// threads a multiple of 32 with threads * C >= n + 1; smem: 512 + (n+1
+// rounded up to 16) bytes, plus k1 * k1 * 4 rounded up to 16 with a table,
 // plus the row buffers unless scratch holds B of them, (n+1) * 28 bytes
-// each rounded up to 16. Returns a cudaError_t code.
+// each (24 without dirs) rounded up to 16. Returns a cudaError_t code.
 int rowcb_fill(const uint8_t* a, const uint8_t* b, const int32_t* la,
                const int32_t* lb, const int32_t* st, uint16_t* dirs,
                float* out, char* scratch, int mode, int B, int m, int n,
                int C, int threads, long long smem, float g, float h,
-               float match, float mismatch, void* stream) {
+               float match, float mismatch, const float* table, int k1,
+               int want_dirs, void* stream) {
     if (B == 0) return 0;
     if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
-        (long long)threads * C < n + 1 || mode < 0 || mode > 2)
+        (long long)threads * C < n + 1 || mode < 0 || mode > 2 ||
+        (table && (mode != 0 || k1 < 2 || k1 > 255)) ||
+        (!table && !want_dirs))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     const size_t sm = (size_t)smem;
+    if (table && want_dirs)
+        return launch<0, true, true>(a, b, la, lb, st, dirs, out, scratch, B,
+                                     m, n, C, threads, sm, g, h, match,
+                                     mismatch, table, k1, s);
+    if (table)
+        return launch<0, true, false>(a, b, la, lb, st, dirs, out, scratch,
+                                      B, m, n, C, threads, sm, g, h, match,
+                                      mismatch, table, k1, s);
     if (mode == 0)
-        return launch<0>(a, b, la, lb, st, dirs, out, scratch, B, m, n, C,
-                         threads, sm, g, h, match, mismatch, s);
+        return launch<0, false, true>(a, b, la, lb, st, dirs, out, scratch,
+                                      B, m, n, C, threads, sm, g, h, match,
+                                      mismatch, nullptr, 0, s);
     if (mode == 1)
-        return launch<1>(a, b, la, lb, st, dirs, out, scratch, B, m, n, C,
-                         threads, sm, g, h, match, mismatch, s);
-    return launch<2>(a, b, la, lb, st, dirs, out, scratch, B, m, n, C,
-                     threads, sm, g, h, match, mismatch, s);
+        return launch<1, false, true>(a, b, la, lb, st, dirs, out, scratch,
+                                      B, m, n, C, threads, sm, g, h, match,
+                                      mismatch, nullptr, 0, s);
+    return launch<2, false, true>(a, b, la, lb, st, dirs, out, scratch, B,
+                                  m, n, C, threads, sm, g, h, match,
+                                  mismatch, nullptr, 0, s);
 }
 
 }  // extern "C"

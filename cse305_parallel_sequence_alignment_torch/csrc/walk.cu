@@ -3,10 +3,14 @@
 // K2 rle_walk replaces _walk_core_rle with layout "row"
 // (cse305_parallel_sequence_alignment_tpu/ops/device_walk.py:124), which
 // is XLA on the TPU, and the experimental Pallas walk _walk_group_kernel
-// (ops/pallas_walk.py:41) that emits the same stream.
+// (ops/pallas_walk.py:41) that emits the same stream; with band_lo >= 0,
+// the walk of layout ("band", band_lo) (device_walk.py:163-164) over the
+// K12d band dirs (csrc/banded.cu), cell (i, j) at column j - i + band_lo.
 //
 // Per pair, from (la, lb, end table t): each round does one dependent read
-// of the dirs16 cell at (i, j), clamped into the array. In T1 it takes the
+// of the dirs16 cell at (i, j), clamped into the array (in band layout the
+// column j - i + band_lo is clamped, as the JAX walk clamps it; a diagonal
+// run keeps its band column, so rounds are the same). In T1 it takes the
 // cell's whole diagonal run (R cells of code 0, then the after-run code):
 // R+1 diagonal moves. In T2/T3 it takes one step by the cell's code for
 // that table. It writes entries[round, pair] = (op+1) | R << 2 and stops
@@ -31,7 +35,7 @@ __global__ void rle_walk_kernel(const uint16_t* __restrict__ dirs,
                                 const int32_t* __restrict__ t0,
                                 uint16_t* __restrict__ entries,
                                 int32_t* __restrict__ used, int B, int nrows,
-                                int ncols, int max_rounds) {
+                                int ncols, int max_rounds, int band_lo) {
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= B) return;
     int i = la[b], j = lb[b], t = t0[b];
@@ -39,7 +43,8 @@ __global__ void rle_walk_kernel(const uint16_t* __restrict__ dirs,
     bool done = (i == 0) || (j == 0);
     while (!done && r < max_rounds) {
         const int ri = min(max(i, 0), nrows - 1);
-        const int cj = min(max(j, 0), ncols - 1);
+        const int cj = min(max(band_lo < 0 ? j : j - i + band_lo, 0),
+                           ncols - 1);
         const int word = dirs[((size_t)ri * B + b) * ncols + cj];
         int k = 0, op, di, dj;
         if (t == 1) {
@@ -65,17 +70,20 @@ __global__ void rle_walk_kernel(const uint16_t* __restrict__ dirs,
 
 extern "C" {
 
-// dirs: (nrows, B, ncols) uint16; la/lb/t0: (B,) i32; entries:
+// dirs: (nrows, B, ncols) uint16, row layout when band_lo < 0, else band
+// layout with lower width band_lo; la/lb/t0: (B,) i32; entries:
 // (max_rounds, B) uint16, zeroed by the caller; used: one i32, zeroed by
 // the caller. Returns a cudaError_t code.
 int rle_walk(const uint16_t* dirs, const int32_t* la, const int32_t* lb,
              const int32_t* t0, uint16_t* entries, int32_t* used, int B,
-             int nrows, int ncols, int max_rounds, void* stream) {
+             int nrows, int ncols, int max_rounds, int band_lo,
+             void* stream) {
     if (B == 0) return 0;
     const int threads = 128;
     const int blocks = (B + threads - 1) / threads;
     rle_walk_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        dirs, la, lb, t0, entries, used, B, nrows, ncols, max_rounds);
+        dirs, la, lb, t0, entries, used, B, nrows, ncols, max_rounds,
+        band_lo);
     return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,8 @@
-"""Aligner families ported so far: the bucketed global ``BatchAligner``,
-the single-pair ``GotohAligner``, and the bucketed ``LocalBatchAligner``,
-``SemiGlobalBatchAligner`` and ``OverlapBatchAligner``."""
+"""Aligner families ported so far: the bucketed global ``BatchAligner``
+(match/mismatch or a substitution matrix), the single-pair
+``GotohAligner`` and ``BandedAligner``, and the bucketed
+``LocalBatchAligner``, ``SemiGlobalBatchAligner`` and
+``OverlapBatchAligner``."""
 
 
 def __getattr__(name):
@@ -14,6 +16,11 @@ def __getattr__(name):
             GotohAligner,
         )
         return GotohAligner
+    if name == "BandedAligner":
+        from cse305_parallel_sequence_alignment_torch.models.banded import (
+            BandedAligner,
+        )
+        return BandedAligner
     if name in ("LocalBatchAligner", "LocalAlignmentResult"):
         from cse305_parallel_sequence_alignment_torch.models import local
         return getattr(local, name)
@@ -28,7 +35,8 @@ def __getattr__(name):
     raise AttributeError(name)
 
 
-__all__ = ["BatchAligner", "GotohAligner", "LocalBatchAligner",
+__all__ = ["BatchAligner", "GotohAligner", "BandedAligner",
+           "LocalBatchAligner",
            "LocalAlignmentResult", "SemiGlobalBatchAligner",
            "SemiGlobalResult", "OverlapBatchAligner", "OverlapResult",
            "OVERLAP_PARAMS"]

@@ -10,6 +10,14 @@ chunk c+1 while the host replays chunk c. ``score_batch`` runs the K3
 score fill only, or the K6 long fill (ops/longrow.py) for buckets wider
 than ``long_threshold``.
 
+With a substitution ``matrix`` (``core.SubstitutionMatrix``) sequences
+are bucketed as alphabet codes padded with the matrix's pad code, and
+the fills read f(A[i], B[j]) from its table: K4d (``rowcb_fill`` with a
+table) in ``align_batch``, followed by the same end choice, K2 walk and
+replay, and K4s (``submat_score_fill``) in ``score_batch`` at every
+bucket width, as the JAX package routes the matrix branch before its
+long-fill threshold.
+
 The aligner's ``device`` is explicit ("cuda" by default, or "cpu" for
 the plain PyTorch versions of the kernels); it is never switched.
 """
@@ -28,7 +36,9 @@ from cse305_parallel_sequence_alignment_torch.core import (
     AlignmentResult,
     LazyChain,
     ScoringParams,
+    SubstitutionMatrix,
     encode_seq,
+    matrix_from_jax,
 )
 from cse305_parallel_sequence_alignment_torch.native import walker
 from cse305_parallel_sequence_alignment_torch.ops.device_walk import rle_walk
@@ -36,6 +46,7 @@ from cse305_parallel_sequence_alignment_torch.ops.longrow import long_fill
 from cse305_parallel_sequence_alignment_torch.ops.rowcb import (
     rowcb_fill,
     score_fill,
+    submat_score_fill,
 )
 
 
@@ -58,21 +69,42 @@ def _buckets(enc_a, enc_b, quantum):
     return buckets
 
 
-def _bucket_arrays(enc_a, enc_b, idxs, key):
+def _bucket_arrays(enc_a, enc_b, idxs, key, matrix=None):
     """(a, b, la, lb) of the pairs ``idxs``, padded to the bucket shape
-    ``key`` with PAD_A / PAD_B."""
+    ``key`` with PAD_A / PAD_B; with a substitution ``matrix``, alphabet
+    codes padded with its pad code (unknown characters raise)."""
     bm, bn = key
     B = len(idxs)
-    a = np.full((B, bm), PAD_A, np.uint8)
-    b = np.full((B, bn), PAD_B, np.uint8)
+    pa, pb = (PAD_A, PAD_B) if matrix is None else (matrix.pad_code,) * 2
+    a = np.full((B, bm), pa, np.uint8)
+    b = np.full((B, bn), pb, np.uint8)
     la = np.zeros((B,), np.int32)
     lb = np.zeros((B,), np.int32)
     for r, k in enumerate(idxs):
-        la[r] = enc_a[k].shape[0]
-        lb[r] = enc_b[k].shape[0]
-        a[r, : la[r]] = enc_a[k]
-        b[r, : lb[r]] = enc_b[k]
+        ra, rb = enc_a[k], enc_b[k]
+        if matrix is not None:
+            ra, rb = matrix.encode(bytes(ra)), matrix.encode(bytes(rb))
+        la[r] = ra.shape[0]
+        lb[r] = rb.shape[0]
+        a[r, : la[r]] = ra
+        b[r, : lb[r]] = rb
     return a, b, la, lb
+
+
+def chunk_size(count, per_pair, max_batch, dirs_budget, split_two=False):
+    """Pairs per ``align_batch`` chunk of a bucket of ``count`` pairs
+    whose dirs take ``per_pair`` bytes each: at most ``max_batch`` and
+    ``dirs_budget``, in equal chunks (a ragged tail pays a whole sweep for
+    little). With ``split_two`` a bucket of 64 or more pairs that fits one
+    chunk goes in two, so the second one's fill hides the first one's
+    host work."""
+    step = max(1, min(max_batch, dirs_budget // per_pair))
+    if split_two and count >= 64 and step >= count:
+        return -(-count // 2)
+    if step < count:
+        nchunks = -(-count // step)
+        step = -(-count // nchunks)
+    return step
 
 
 def _end_choice(fin, en, h):
@@ -142,7 +174,8 @@ class BatchAligner:
     bucket_quantum: int = 128
     max_batch: int = 512
     dirs_budget: int = 2 << 30
-    # a substitution matrix (core.SubstitutionMatrix in the JAX package)
+    # a substitution matrix: core.SubstitutionMatrix, or the JAX
+    # package's, carried across by its alphabet and values
     matrix: object = None
     # score_batch gives buckets wider than this to the long fill (K6)
     long_threshold: int = 16384
@@ -157,10 +190,16 @@ class BatchAligner:
                 f"BatchAligner(device={self.device!r}) needs a CUDA card "
                 "and none is available; pass device='cpu' to run the "
                 "plain PyTorch kernels on the CPU")
+        self._table = None
         if self.matrix is not None:
-            raise NotImplementedError(
-                "substitution-matrix scoring (kernel K4) is not ported "
-                "yet: ROADMAP queue 1 item 8")
+            if not isinstance(self.matrix, SubstitutionMatrix):
+                self.matrix = matrix_from_jax(self.matrix)
+            if self.matrix.k + 1 > 255:
+                raise ValueError(
+                    f"a substitution matrix of {self.matrix.k} letters: "
+                    "the kernels take at most 254")
+            self._table = torch.from_numpy(self.matrix.table()).to(
+                self._dev)
         self.last_phases = dict.fromkeys(PHASES, 0.0)
 
     def _prep(self, pairs):
@@ -182,17 +221,23 @@ class BatchAligner:
         tables = np.zeros(len(pairs), np.int32)
         for key, idxs in buckets.items():
             # past the whole-row kernel's reach: the long fill, whose
-            # strips spread even a one-pair bucket over the card
+            # strips spread even a one-pair bucket over the card; a
+            # matrix bucket of any width goes to K4s
             fill = long_fill if max(key) > self.long_threshold \
                 else score_fill
             for s in range(0, len(idxs), self.max_batch):
                 chunk = idxs[s: s + self.max_batch]
-                a, b, la, lb = _bucket_arrays(enc_a, enc_b, chunk, key)
+                a, b, la, lb = _bucket_arrays(enc_a, enc_b, chunk, key,
+                                              self.matrix)
                 st = np.full(len(chunk), self.start_type, np.int32)
                 en = np.full(len(chunk), self.end_type, np.int32)
                 t_a, t_b, t_la, t_lb, t_st, t_en = self._to_dev(
                     a, b, la, lb, st, en)
-                fin = fill(t_a, t_b, t_la, t_lb, t_st, self.params)
+                if self._table is not None:
+                    fin = submat_score_fill(t_a, t_b, t_la, t_lb, t_st,
+                                            self._table, self.params)
+                else:
+                    fin = fill(t_a, t_b, t_la, t_lb, t_st, self.params)
                 tb, sc = _end_choice(fin, t_en, self.params.h)
                 scores[chunk] = sc.cpu().numpy()
                 tables[chunk] = tb.cpu().numpy()
@@ -217,20 +262,11 @@ class BatchAligner:
         self.last_phases = dict.fromkeys(PHASES, 0.0)
         pending: list = []
         for key, idxs in buckets.items():
-            bm, bn = key
-            per_pair = 2 * (bm + 1) * (bn + 1)  # uint16 dirs
-            step = max(1, min(self.max_batch, self.dirs_budget // per_pair))
-            if len(idxs) >= 64 and step >= len(idxs):
-                # two chunks, so the second one's fill hides the first
-                # one's host replay and render
-                step = -(-len(idxs) // 2)
-            elif step < len(idxs):
-                # equal chunks: a ragged tail pays a whole walk for little
-                nchunks = -(-len(idxs) // step)
-                step = -(-len(idxs) // nchunks)
+            step = self.chunk_size(key, len(idxs))
             for s in range(0, len(idxs), step):
                 chunk = idxs[s: s + step]
-                a, b, la, lb = _bucket_arrays(enc_a, enc_b, chunk, key)
+                a, b, la, lb = _bucket_arrays(enc_a, enc_b, chunk, key,
+                                              self.matrix)
                 st = np.full(len(chunk), self.start_type, np.int32)
                 en = np.full(len(chunk), self.end_type, np.int32)
                 if start_types is not None:
@@ -248,6 +284,14 @@ class BatchAligner:
                              offsets, traceback_mode)
         return results
 
+    def chunk_size(self, key, count):
+        """Pairs per ``align_batch`` chunk of a bucket of shape ``key``
+        holding ``count`` pairs (uint16 dirs; two chunks at least, so the
+        second one's fill hides the first one's replay and render)."""
+        bm, bn = key
+        return chunk_size(count, 2 * (bm + 1) * (bn + 1), self.max_batch,
+                          self.dirs_budget, split_two=True)
+
     def _dispatch_fused(self, a, b, la, lb, st, en):
         """Queue fill, end choice, walk and the device-to-host copies of
         one chunk on the current stream; returns the handles without
@@ -257,7 +301,8 @@ class BatchAligner:
         t_a, t_b, t_la, t_lb, t_st, t_en = self._to_dev(a, b, la, lb, st,
                                                         en)
         marks.mark()
-        dirs, fin = rowcb_fill(t_a, t_b, t_la, t_lb, t_st, self.params)
+        dirs, fin = rowcb_fill(t_a, t_b, t_la, t_lb, t_st, self.params,
+                               self._table)
         tb, sc = _end_choice(fin, t_en, self.params.h)
         entries, used = rle_walk(dirs, t_la, t_lb, tb, max_steps)
         del dirs

@@ -29,6 +29,7 @@ from cse305_parallel_sequence_alignment_torch.models.batch import (
     _bucket_arrays,
     _buckets,
     _encode_many,
+    chunk_size,
 )
 
 PHASES = ("prep_ms", "fill_ms", "walk_ms", "d2h_ms", "build_ms")
@@ -77,15 +78,9 @@ class ChunkedAligner:
 
     def chunk_size(self, key, count):
         """Pairs per ``align_batch`` chunk of a bucket of shape ``key``
-        holding ``count`` pairs: at most ``max_batch`` and the dirs
-        budget, in equal chunks (a ragged tail would pay a whole sweep
-        for little)."""
-        step = max(1, min(self.max_batch,
-                          self.dirs_budget // self._dirs_bytes(*key)))
-        if step < count:
-            nchunks = -(-count // step)
-            step = -(-count // nchunks)
-        return step
+        holding ``count`` pairs (models/batch.py ``chunk_size``)."""
+        return chunk_size(count, self._dirs_bytes(*key), self.max_batch,
+                          self.dirs_budget)
 
     def align_batch(self, pairs):
         """Full alignments of all pairs, as the mode's result objects."""

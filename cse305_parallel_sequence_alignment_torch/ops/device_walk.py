@@ -5,8 +5,11 @@
 the K1 dirs16+runs array ``(rows, B, cols)`` back from each pair's end
 cell and ships only one uint16 entry per round, ``(op+1) | R << 2``: in
 T1 a round takes the cell's diagonal run of R code-0 steps plus one step
-of the after-run code; in T2/T3 one step. The kernel is
-``csrc/walk.cu``; a CPU tensor goes to the plain PyTorch version.
+of the after-run code; in T2/T3 one step. With ``band_lo`` it walks the
+K12d band layout instead, layout ``("band", w_lo)`` of the same JAX
+function (:163-164): cell (i, j) at column ``j - i + band_lo``, clamped
+into the array. The kernel is ``csrc/walk.cu``; a CPU tensor goes to the
+plain PyTorch version.
 
 ``expand_rle_ops`` and ``replay_ops`` are numpy copies of the JAX
 package's host replays (same file, :241-263 and :338-439). The main path
@@ -35,7 +38,7 @@ from cse305_parallel_sequence_alignment_torch.core import (
 from cse305_parallel_sequence_alignment_torch.ops import _build
 
 
-def rle_walk_plain(dirs, la, lb, t0, max_rounds):
+def rle_walk_plain(dirs, la, lb, t0, max_rounds, band_lo=None):
     """Plain PyTorch K2: (entries (max_rounds, B) uint16, used (1,) int32).
 
     One gather per round for all pairs; stops when every pair reached an
@@ -49,8 +52,9 @@ def rle_walk_plain(dirs, la, lb, t0, max_rounds):
     r = 0
     d16 = dirs.view(torch.int16)  # few PyTorch kernels take uint16
     while r < max_rounds and not bool(done.all()):
+        col = j if band_lo is None else j - i + band_lo
         word = d16[i.clamp(0, nrows - 1), bidx,
-                   j.clamp(0, ncols - 1)].to(torch.int32) & 0xFFFF
+                   col.clamp(0, ncols - 1)].to(torch.int32) & 0xFFFF
         is_run = t == 1
         shift = torch.where(t == 2, DIR_T2_SHIFT, DIR_T3_SHIFT)
         k = torch.where(is_run, (word >> 8) & 255, 0)
@@ -92,20 +96,24 @@ def _entry():
     """ctypes entry point of csrc/walk.cu."""
     fn = _build.cuda_library("walk").rle_walk
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     return fn
 
 
-def rle_walk(dirs, la, lb, t0, max_rounds):
-    """K2: run-length walk of every pair from (la, lb) in table t0.
+def rle_walk(dirs, la, lb, t0, max_rounds, band_lo=None):
+    """K2: run-length walk of every pair from (la, lb) in table t0, over
+    row-layout dirs, or band-layout dirs of lower width ``band_lo``.
 
     Returns (entries (max_rounds, B) uint16, zero past each pair's last
     round, and used (1,) int32, the largest round count), both on the
-    dirs' device; nothing is synchronised."""
+    dirs' device; nothing is synchronised. Band-layout launches count in
+    ``rle_walk.band_launches``, row-layout ones in ``rle_walk.launches``."""
     _check(dirs, la, lb, t0, max_rounds)
+    if band_lo is not None and band_lo < 0:
+        raise ValueError(f"band_lo must be >= 0, got {band_lo}")
     if dirs.device.type == "cpu":
-        return rle_walk_plain(dirs, la, lb, t0, max_rounds)
+        return rle_walk_plain(dirs, la, lb, t0, max_rounds, band_lo)
     nrows, B, ncols = dirs.shape
     dev = dirs.device
     ent = torch.zeros((max_rounds, B), dtype=torch.int16,
@@ -115,13 +123,18 @@ def rle_walk(dirs, la, lb, t0, max_rounds):
         err = _entry()(dirs.data_ptr(), la.data_ptr(), lb.data_ptr(),
                        t0.data_ptr(), ent.data_ptr(), used.data_ptr(), B,
                        nrows, ncols, max_rounds,
+                       -1 if band_lo is None else band_lo,
                        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rle_walk")
-    rle_walk.launches += 1
+    if band_lo is None:
+        rle_walk.launches += 1
+    else:
+        rle_walk.band_launches += 1
     return ent, used
 
 
 rle_walk.launches = 0
+rle_walk.band_launches = 0
 
 
 def local_walk_plain(dirs, ei, ej, max_steps):

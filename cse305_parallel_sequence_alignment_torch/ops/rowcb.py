@@ -1,13 +1,19 @@
-"""Gotoh row-sweep dirs fills: K1 (global), K10d (semi-global), K11d
-(overlap), and the re-export of K3.
+"""Gotoh row-sweep fills: K1 (global), K4d and K4s (global under a
+substitution matrix), K10d (semi-global), K11d (overlap), and the
+re-export of K3.
 
 K1 ``rowcb_fill`` is the port of the TPU kernel ``_rowcb_kernel``
 (cse305_parallel_sequence_alignment_tpu/ops/pallas_rowcb.py:126) with
 ``want_dirs=True, with_runs=True, k1=0``; K10d ``semiglobal_dirs`` of
 ``_sg_rowdirs_kernel`` (ops/pallas_semiglobal.py:195) and K11d
 ``overlap_dirs`` of ``_ov_rowdirs_kernel`` (ops/pallas_overlap.py:54),
-both with ``with_runs=True, perm=False``. All three run one row sweep
-(``csrc/rowcb.cu``, one CUDA template with a mode parameter):
+both with ``with_runs=True, perm=False``. K4d is ``rowcb_fill`` given a
+``table``: the ``k1 > 0`` branch of ``_rowcb_kernel`` (pallas_rowcb.py:244,
+f(A[i], B[j]) = table[A[i], B[j]]), and K4s ``submat_score_fill`` the
+score-only ``_submat_kernel`` (ops/pallas_fill.py:1110) with the same
+arithmetic, so its finals equal K4d's. All of them run one row sweep
+(``csrc/rowcb.cu``, one CUDA template with a mode parameter and two
+flags, table and dirs):
 
 - ``T1 = f(A[i], B[j]) + max3(prev row, j-1)``
 - ``T3 = max(max(T1,T2)(prev, j) - gh, T3(prev, j) - g)``
@@ -29,7 +35,10 @@ then anti-diagonal asc, then table, then column, as (B, 4) [score,
 end_table, end_i, end_j], or (-inf, 1, 0, 0) when no cell qualifies.
 
 Inputs are a bucket: ``a`` (B, m) and ``b`` (B, n) uint8 codes padded
-with ``PAD_A``/``PAD_B`` and lengths ``la``/``lb``, each (B,) int32.
+with ``PAD_A``/``PAD_B`` (under a table: alphabet codes padded with the
+matrix's pad code k1 - 1, the table being (k1, k1) float32 with k1 <=
+255, as ``core.SubstitutionMatrix.table()`` gives it) and lengths
+``la``/``lb``, each (B,) int32.
 Every cell of the bucket is computed, padding included. ``dirs`` is
 (m+1, B, n+1) uint16, cell (i, j) of pair b at ``dirs[i, b, j]``,
 packing [d1 | d2 << 2 | d3 << 4 | after-run code << 6 | run length << 8]
@@ -82,13 +91,14 @@ def _shift(x, fill):
 
 
 def _sweep_plain(a, b, la, lb, st, params, want_dirs, want_row=False,
-                 mode="global"):
+                 mode="global", table=None):
     """Row loop over (B, n+1) tensors in the kernel's float32 order.
 
     Returns (dirs or None, out). In global mode ``out`` is the finals
     (B, 3) at (la, lb), or with ``want_row`` the whole row la of each
     pair, (B, 3, n+1); in semi-global and overlap mode it is the best
-    (B, 4) [score, end_table, end_i, end_j] (see the module docstring)."""
+    (B, 4) [score, end_table, end_i, end_j] (see the module docstring).
+    With a ``table`` (global mode) f(A[i], B[j]) is read from it."""
     code = _build.MODES[mode]
     B, m = a.shape
     n = b.shape[1]
@@ -105,6 +115,9 @@ def _sweep_plain(a, b, la, lb, st, params, want_dirs, want_row=False,
     lane0 = (j == 0)[None, :]
     bext = torch.cat([torch.full((B, 1), PAD_B, dtype=torch.int32,
                                  device=dev), b.to(torch.int32)], dim=1)
+    if table is not None:
+        # column 0's sentinel never scores: T1 is -inf there
+        bcol = bext.clamp(max=table.shape[0] - 1).to(torch.int64)
     stc = st.to(torch.int32)[:, None]
     lbi = lb.to(torch.int64)[:, None]
 
@@ -153,8 +166,11 @@ def _sweep_plain(a, b, la, lb, st, params, want_dirs, want_row=False,
             col0_3 = -h - g * fi if code == 1 else neg
         mp12 = torch.maximum(p1, p2)
         mp3 = torch.maximum(mp12, p3)
-        fb = torch.where(bext == a[:, i - 1:i].to(torch.int32), match,
-                         mismatch)
+        if table is not None:
+            fb = table[a[:, i - 1:i].to(torch.int64), bcol]
+        else:
+            fb = torch.where(bext == a[:, i - 1:i].to(torch.int32), match,
+                             mismatch)
         t1 = torch.where(lane0, zero if code == 2 else neg,
                          fb + _shift(mp3, NEG_INF))
         t3 = torch.where(lane0, col0_3, torch.maximum(mp12 - gh, p3 - g))
@@ -231,6 +247,18 @@ def rowcb_fill_plain(a, b, la, lb, st, params):
     return _sweep_plain(a, b, la, lb, st, params, want_dirs=True)
 
 
+def matrix_dirs_plain(a, b, la, lb, st, table, params):
+    """Plain PyTorch K4d: (dirs (m+1, B, n+1) uint16, finals (B, 3))."""
+    return _sweep_plain(a, b, la, lb, st, params, want_dirs=True,
+                        table=table)
+
+
+def submat_score_fill_plain(a, b, la, lb, st, table, params):
+    """Plain PyTorch K4s: finals (B, 3), the same sweep without dirs."""
+    return _sweep_plain(a, b, la, lb, st, params, want_dirs=False,
+                        table=table)[1]
+
+
 def semiglobal_dirs_plain(a, b, la, lb, params):
     """Plain PyTorch K10d: (dirs (m+1, B, n+1) uint16, best (B, 4))."""
     return _sweep_plain(a, b, la, lb, torch.zeros_like(la), params,
@@ -243,33 +271,37 @@ def overlap_dirs_plain(a, b, la, lb, params):
                         want_dirs=True, mode="overlap")
 
 
-def _launch_geometry(n):
-    """(C, threads, row_bytes, base_smem) for a bucket of width n."""
+def _launch_geometry(n, want_dirs=True, k1=0):
+    """(C, threads, row_bytes, base_smem) for a bucket of width n, with
+    or without dirs, under a (k1, k1) table or none (k1 = 0)."""
     ncol = n + 1
     C = max(4, -(-ncol // 1024))
     threads = -(-ncol // (32 * C)) * 32  # whole warps covering ncol
-    row_bytes = (ncol * 28 + 15) // 16 * 16
-    base_smem = 512 + (ncol + 15) // 16 * 16
+    row_bytes = (ncol * (28 if want_dirs else 24) + 15) // 16 * 16
+    base_smem = 512 + (ncol + 15) // 16 * 16 + (k1 * k1 * 4 + 15) // 16 * 16
     return C, threads, row_bytes, base_smem
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     """ctypes entry point of csrc/rowcb.cu: 8 pointers, then mode, B, m,
-    n, C, threads, shared bytes, g, h, match, mismatch, stream."""
+    n, C, threads, shared bytes, g, h, match, mismatch, the table
+    pointer, k1, want_dirs, stream."""
     fn = _build.cuda_library("rowcb").rowcb_fill
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] + [ctypes.c_float] * 4
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     return fn
 
 
-def _launch(a, b, la, lb, st, params, mode):
+def _launch(a, b, la, lb, st, params, mode, table=None, want_dirs=True):
     B, m = a.shape
     n = b.shape[1]
     dev = a.device
-    C, threads, row_bytes, smem = _launch_geometry(n)
+    k1 = 0 if table is None else table.shape[0]
+    C, threads, row_bytes, smem = _launch_geometry(n, want_dirs, k1)
     scratch = None
     if smem + row_bytes <= SMEM_LIMIT:
         smem += row_bytes
@@ -277,26 +309,74 @@ def _launch(a, b, la, lb, st, params, mode):
         scratch = torch.empty(B * row_bytes, dtype=torch.uint8, device=dev)
     out = torch.full((B, 3 if mode == "global" else 4), NEG_INF,
                      dtype=torch.float32, device=dev)
-    dirs = torch.empty((m + 1, B, n + 1), dtype=torch.uint16, device=dev)
+    dirs = (torch.empty((m + 1, B, n + 1), dtype=torch.uint16, device=dev)
+            if want_dirs else None)
     g, h, match, mismatch = params.astuple()
     with torch.cuda.device(dev):
         err = _entry()(
             a.data_ptr(), b.data_ptr(), la.data_ptr(), lb.data_ptr(),
-            st.data_ptr(), dirs.data_ptr(), out.data_ptr(),
+            st.data_ptr(), dirs.data_ptr() if want_dirs else None,
+            out.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
             _build.MODES[mode], B, m, n, C, threads, smem, g, h, match,
-            mismatch, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, f"rowcb_fill({mode})")
+            mismatch, table.data_ptr() if table is not None else None, k1,
+            int(want_dirs), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, f"rowcb_fill({mode}{', table' if k1 else ''})")
     return dirs, out
 
 
-def rowcb_fill(a, b, la, lb, st, params):
-    """K1: dirs16+runs fill of a bucket; see the module docstring."""
+def check_table(table, a, b):
+    """Raise unless ``table`` is a contiguous (k1, k1) float32 tensor on
+    the codes' device with 2 <= k1 <= 255 (the kernels keep codes in
+    uint8 with 255 as the column-0 sentinel), and every code of ``a`` and
+    ``b`` (``SubstitutionMatrix.encode`` codes, padded with its pad code)
+    indexes it: the kernels read the table unchecked."""
+    if table.dtype != torch.float32 or table.dim() != 2 or \
+            table.shape[0] != table.shape[1]:
+        raise ValueError(f"table must be (k1, k1) float32, got "
+                         f"{tuple(table.shape)} {table.dtype}")
+    k1 = table.shape[0]
+    if not 2 <= k1 <= 255:
+        raise ValueError(f"a substitution table of K+1 = {k1} codes: the "
+                         f"kernels take 2 to 255")
+    if table.device != a.device or not table.is_contiguous():
+        raise ValueError("table must be contiguous, on the codes' device")
+    top = max((int(x.max()) for x in (a, b) if x.numel()), default=0)
+    if top >= k1:
+        raise ValueError(f"code {top} does not index a table of {k1} codes: "
+                         f"encode with SubstitutionMatrix.encode and pad "
+                         f"with its pad_code")
+
+
+def rowcb_fill(a, b, la, lb, st, params, table=None):
+    """K1: dirs16+runs fill of a bucket; with a ``table``, K4d (the same
+    fill scoring f(A[i], B[j]) = table[A[i], B[j]]). See the module
+    docstring."""
     _build.check_bucket(a, b, la, lb, st)
+    if table is not None:
+        check_table(table, a, b)
     if a.device.type == "cpu":
+        if table is not None:
+            return matrix_dirs_plain(a, b, la, lb, st, table, params)
         return rowcb_fill_plain(a, b, la, lb, st, params)
-    out = _launch(a, b, la, lb, st, params, "global")
-    rowcb_fill.launches += 1
+    out = _launch(a, b, la, lb, st, params, "global", table)
+    if table is None:
+        rowcb_fill.launches += 1
+    else:
+        rowcb_fill.table_launches += 1
+    return out
+
+
+def submat_score_fill(a, b, la, lb, st, table, params):
+    """K4s: finals (B, 3) of a bucket under a substitution ``table``; the
+    K4d sweep storing no dirs, so the finals are K4d's bit for bit."""
+    _build.check_bucket(a, b, la, lb, st)
+    check_table(table, a, b)
+    if a.device.type == "cpu":
+        return submat_score_fill_plain(a, b, la, lb, st, table, params)
+    out = _launch(a, b, la, lb, st, params, "global", table,
+                  want_dirs=False)[1]
+    submat_score_fill.launches += 1
     return out
 
 
@@ -326,6 +406,8 @@ def overlap_dirs(a, b, la, lb, params):
 
 
 rowcb_fill.launches = 0
+rowcb_fill.table_launches = 0  # K4d
+submat_score_fill.launches = 0
 semiglobal_dirs.launches = 0
 overlap_dirs.launches = 0
 

@@ -161,8 +161,14 @@ def test_api_global_and_other_modes():
     same_results([api.align(a, b, device="cpu") for a, b in pairs], want)
     scores, tables = api.score_pairs(pairs, device="cpu")
     assert np.array_equal(scores, [w.score for w in want])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.align("ACGT", "ACG", mode="banded", device="cpu")
+    from cse305_parallel_sequence_alignment_tpu import api as jax_api
+    got = api.align("ACGTTGCA", "ACGTGCA", mode="banded", band=2,
+                    device="cpu")
+    want = jax_api.align("ACGTTGCA", "ACGTGCA", mode="banded", band=2)
+    assert (got.score, list(got.chain), got.aligned_a, got.aligned_b,
+            got.end_table, got.edge_touched) == (
+        want.score, want.chain, want.aligned_a, want.aligned_b,
+        want.end_table, want.edge_touched)
     with pytest.raises(ValueError):
         api.align("ACGT", "ACG", mode="nonsense", device="cpu")
     # a bucket wider than long_threshold scores through the long fill
@@ -230,6 +236,35 @@ def test_walk_past_the_shipped_cap_refetches():
     got = BatchAligner(device="cpu").align_batch([pair])
     assert got[0].end_table == 2
     same_results(got, want)
+
+
+@pytest.mark.parametrize("count,per_pair,max_batch,split_two,want", [
+    (10, 100, 32, False, 10),    # one chunk holds the bucket
+    (100, 1, 128, True, 50),     # one chunk would; cut in two
+    (63, 1, 128, True, 128),     # too few pairs to cut
+    (10, 300, 32, False, 3),     # the budget holds 3: 4 chunks of <= 3
+    (100, 1, 32, False, 25),     # max_batch 32: 4 equal chunks of 25
+])
+def test_chunk_size_policy(count, per_pair, max_batch, split_two, want):
+    """One chunk policy for every aligner: at most ``max_batch`` pairs
+    and ``dirs_budget`` bytes (1,000 here), equal chunks, and the global
+    aligner's cut in two."""
+    from cse305_parallel_sequence_alignment_torch.models.batch import (
+        chunk_size,
+    )
+    from cse305_parallel_sequence_alignment_torch.models.local import (
+        LocalBatchAligner,
+    )
+
+    assert chunk_size(count, per_pair, max_batch, 1000, split_two) == want
+    bm, bn = 10, 12
+    al = BatchAligner(max_batch=max_batch, dirs_budget=10 ** 4, device="cpu")
+    assert al.chunk_size((bm, bn), count) == chunk_size(
+        count, 2 * (bm + 1) * (bn + 1), max_batch, 10 ** 4, True)
+    loc = LocalBatchAligner(max_batch=max_batch, dirs_budget=10 ** 4,
+                            device="cpu")
+    assert loc.chunk_size((bm, bn), count) == chunk_size(
+        count, loc._dirs_bytes(bm, bn), max_batch, 10 ** 4)
 
 
 @pytest.mark.cuda

@@ -21,18 +21,24 @@ import cse305_parallel_sequence_alignment_torch as port
 import cse305_parallel_sequence_alignment_torch.__main__
 from cse305_parallel_sequence_alignment_torch import api, models
 from cse305_parallel_sequence_alignment_torch.models import (
-    BatchAligner, GotohAligner, LocalAlignmentResult, LocalBatchAligner,
-    OverlapBatchAligner, OverlapResult, SemiGlobalBatchAligner,
-    SemiGlobalResult)
+    BandedAligner, BatchAligner, GotohAligner, LocalAlignmentResult,
+    LocalBatchAligner, OverlapBatchAligner, OverlapResult,
+    SemiGlobalBatchAligner, SemiGlobalResult)
 from cse305_parallel_sequence_alignment_torch.models import local_oracle
 from cse305_parallel_sequence_alignment_torch.ops import (
-    _build, cigar, device_walk, diag, local, longrow, longstair, rowcb,
-    traceback)
+    _build, banded, cigar, device_walk, diag, local, longrow, longstair,
+    rowcb, traceback)
 from cse305_parallel_sequence_alignment_torch.parallel import partition
 from cse305_parallel_sequence_alignment_torch.native import walker
-from cse305_parallel_sequence_alignment_torch.utils import config, fasta
+from cse305_parallel_sequence_alignment_torch.utils import (
+    config, fasta, matrices)
 res = port.align("AGGA", "AGTGC", device="cpu")
 assert (res.aligned_a, res.aligned_b) == ("AG-GA", "AGTGC")
+bnd = port.align("AGGA", "AGTGC", mode="banded", device="cpu")
+assert (bnd.aligned_a, bnd.aligned_b) == ("AG-GA", "AGTGC")
+mat = BatchAligner(matrix=matrices.BLOSUM62, device="cpu").align_batch(
+    [("HEAGAWGHEE", "PAWHEAE")])[0]
+assert mat.score == 20.0, mat.score
 loc = port.align("GGACGTAC", "TTACGTAT", mode="local", device="cpu")
 assert (loc.score, loc.cigar) == (10.0, "5M")
 sg = port.align("ACGT", "TTACGTT", mode="semiglobal", device="cpu")
@@ -66,6 +72,22 @@ def test_native_sources_are_the_ports_own():
         assert src.is_file(), src
 
 
+@pytest.mark.parametrize("rel", ["ops/banded.py", "csrc/banded.cu",
+                                 "models/banded.py", "utils/matrices.py"])
+def test_banded_and_matrix_sources_are_the_ports_own(rel):
+    """The banded and matrix modules lie under the port and name neither
+    jax nor the JAX package."""
+    from cse305_parallel_sequence_alignment_torch.ops import _build
+    path = ROOT / "cse305_parallel_sequence_alignment_torch" / rel
+    assert path.is_file()
+    text = path.read_text()
+    assert "import jax" not in text and "from jax" not in text
+    assert "cse305_parallel_sequence_alignment_tpu." not in text.replace(
+        "cse305_parallel_sequence_alignment_tpu/", "")
+    if rel.startswith("csrc/"):
+        assert path in _build.sources()
+
+
 def test_cuda_aligner_refuses_cpu_host():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
@@ -82,6 +104,8 @@ def test_cuda_aligner_refuses_cpu_host():
         GotohAligner().align("AGGA", "AGTGC")
     with pytest.raises(RuntimeError, match="CUDA"):
         api.score_pairs([("AGGA", "AGTGC")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.align("AGGA", "AGTGC", mode="banded")
     for mode in ("local", "semiglobal", "overlap"):
         with pytest.raises(RuntimeError, match="CUDA"):
             api.align_pairs([("AGGA", "AGTGC")], mode=mode)
@@ -89,11 +113,10 @@ def test_cuda_aligner_refuses_cpu_host():
         BatchAligner(device="meta")
 
 
-def _matrix_mode():
-    from cse305_parallel_sequence_alignment_torch.models.batch import (
-        BatchAligner,
-    )
-    BatchAligner(device="cpu", matrix=object())
+def _longscore_devices():
+    from cse305_parallel_sequence_alignment_torch.__main__ import main
+    main(["longscore", "--a", "ACGT", "--b", "ACG", "--devices", "2",
+          "--device", "cpu"])
 
 
 def _sharded_fill():
@@ -103,9 +126,9 @@ def _sharded_fill():
     PartitionedAligner(fill_backend="sharded", device="cpu")
 
 
-@pytest.mark.parametrize("make,item", [(_matrix_mode, "K4"),
+@pytest.mark.parametrize("make,item", [(_longscore_devices, "item 13"),
                                        (_sharded_fill, "item 13")],
-                         ids=["matrix", "sharded"])
+                         ids=["longscore-devices", "sharded"])
 def test_unported_options_name_their_roadmap_item(make, item):
     with pytest.raises(NotImplementedError, match=item):
         make()
