@@ -5,20 +5,21 @@
 
 Builds the port's kernels from ``cse305_parallel_sequence_alignment_torch/
 csrc`` (one compiler process per source, all at once) and drives its
-seven main paths, global full alignment of many pairs (match/mismatch
+eight main paths, global full alignment of many pairs (match/mismatch
 and under a substitution matrix), the balanced partition of one long
-pair, banded global alignment of it, local (Smith-Waterman), semi-global
-and overlap alignment of many pairs:
+pair, the ``BatchAligner`` backends, banded global alignment of the long
+pair, local (Smith-Waterman), semi-global and overlap alignment of many
+pairs:
 
 1. card, torch and CUDA versions; the kernels' build time;
 2. each kernel against its plain PyTorch version on the card, bit for
    bit, both timed with CUDA events: K1 dirs16+runs fill, K3
    anti-diagonal score fill and K2 run-length walk on 8 ragged pairs up
    to 2 kb with every start type, on rows too wide for shared memory,
-   and on 256 x 2 kb; K1 and K3 again at g=0.3, h=1.7 (the
-   ``[numerics]`` line); K6 long fill on 8 jobs of 3-5 k x 17-20 k with
-   mixed start types, finals and last rows; K7 on one 6,000 x 20,000 job
-   for 3 start types;
+   and on 256 x 2 kb; K1, K3, K6, K3', K1', K5 and K2s again at g=0.3,
+   h=1.7 (the ``[numerics]`` line); K6 long fill on 8 jobs of 3-5 k x
+   17-20 k with mixed start types, finals and last rows; K7 on one
+   6,000 x 20,000 job for 3 start types;
 3. the golden cases (tests/golden/cases.jsonl) through
    ``BatchAligner(device="cuda")``: 34 pipeline rows byte-equal, 152
    subproblem chains and finals equal;
@@ -49,12 +50,29 @@ and overlap alignment of many pairs:
    step 5 gave them (each bisection level's largest K7 job, or its whole
    K6 bucket), which set their times in the kernels line; each K7 level
    also timed as one K6 launch over its jobs;
-6a. K12d, K12s and K2 in band layout against their plain versions, bit
+6a. K3' row-sweep score fill, K1' row uint8 dirs fill, K5 skew dirs fill
+    and K2s single-step walk (row and skew layouts) against their plain
+    versions, bit for bit: 8 ragged pairs up to 2 kb with every start
+    type, 4 x 300 x 9 kb (global scratch), and 256 x 2 kb (seed 7, timed);
+    K1' equal to K1's word & 0x3F (``[backend-kernels]``);
+6b. the backends path, counters set to 0 again: ``align_batch`` under
+    ``backend="rowdirs"`` (K1' + K2s) and ``"wavefront"`` (K5 + K2s) on
+    step 4's 256 x 2 kb pairs (one warm-up, 2 timed runs each),
+    ``score_batch`` under ``"pallas_rowscan"`` (K3'), and
+    ``PartitionedAligner(p=0, backend="wavefront").align`` of step 5's
+    13,309 x 97,409 pair; gates: every pair equal to the fused route's
+    result, the K3' scores equal to K3's, the partition equal to the
+    fused one (``[backends]``); then, outside the window, that partition
+    again with its route recording what it hands K5 and K2s (the same
+    result), and K5 and K2s (skew) against their plain versions, bit for
+    bit, on each recorded chunk of 3.3 k x 24-27 k segments
+    (``[segment-kernels]``);
+6c. K12d, K12s and K2 in band layout against their plain versions, bit
     for bit: 256 related pairs x 2 kb at bands (64, 64) and (256, 256), 8
     ragged pairs with every start type, a band too wide for shared
     memory, and the banded path's own launch, every row of the 97 kb
     pair at W = 1,329 (``[banded-kernels]``);
-6b. the banded path, counters set to 0 again: ``api.align(mode="banded",
+6d. the banded path, counters set to 0 again: ``api.align(mode="banded",
     band=64)`` on step 5's 97 kb pair and its copy (W = 1,329), one
     warm-up and 2 timed runs, then ``BandedAligner`` for the phase split
     and ``score``; gates: the runs equal, ``score`` = ``align``, rows that
@@ -91,8 +109,10 @@ and overlap alignment of many pairs:
     B, half are unrelated); gates as step 10, with every end on the last
     row or the last column;
 12. the CLI ``align``, ``partition``, ``local``, ``semiglobal`` and
-    ``overlap`` in subprocesses;
-13. every kernel of each path launched in step 4, 4b, 5, 6b, 8, 10 or 11.
+    ``overlap`` in subprocesses, and ``perf --no-longseq`` at its defaults
+    (every row parses and has no error; printed on ``[perf]`` lines);
+13. every kernel of each path launched in step 4, 4b, 5, 6b, 6d, 8, 10
+    or 11.
 
 Prints a JSON line of the kernels (times, bounds, launches), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Any
@@ -133,6 +153,10 @@ SW_DIRS_OPS = 26
 # per interior cell of csrc/diag.cu (K3, K10s, K11s): the base compare,
 # max3 + add, and two gap maxima of a max, two subtractions and a max
 DIAG_OPS = 12
+# K5 (csrc/diag.cu with DIRS): K3's cell with the six gap candidates
+# rounded one by one (two more subtractions) and three argmax3 of three
+# compares each
+SKEW_DIRS_OPS = 23
 # per in-band cell of csrc/banded.cu, counted as above: K12s 16 (max3 +
 # add, two gap maxima of a max and two subtractions, omega's three
 # operations, two running maxima, the base compare, T2's three in pass 2),
@@ -326,16 +350,148 @@ def phase_numerics(report):
                  rowcb.score_fill_plain(*args, params))
     e6 = max_err(longrow.long_fill(*args, params),
                  longrow.long_fill_plain(*args, params))
+    del d_k, d_p
+    errs = backend_kernel_errs(args, params)
     print(f"[numerics] {NON_DYADIC}, 8 ragged pairs up to 2 kb, all six "
-          f"start types: K1 err {e1}, K3 err {e3}, K6 err {e6} (kernel vs "
-          f"plain)", flush=True)
-    if e1 or e3 or e6:
+          f"start types: K1 err {e1}, K3 err {e3}, K6 err {e6}, "
+          + ", ".join(f"{k} err {v}" for k, v in errs.items())
+          + " (kernel vs plain)", flush=True)
+    errs.update(K1=e1, K3=e3, K6=e6)
+    if any(errs.values()):
         raise RuntimeError("a global kernel disagrees with its plain "
                            "version at non-dyadic parameters")
-    for key, err in (("K1", e1), ("K3", e3), ("K6", e6)):
+    for key, err in errs.items():
         report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
-    del d_k, d_p
     torch.cuda.empty_cache()
+
+
+def backend_kernel_errs(args, params, times=None):
+    """K3', K1' (uint8), K5 and K2s in both layouts against their plain
+    versions on the card, on one bucket; with a ``times`` dict, each
+    kernel (3 runs after a warm-up) and its plain version (one run) are
+    timed into it as (ms, plain ms, bound)."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.models.batch import (
+        _end_choice,
+    )
+    from cse305_parallel_sequence_alignment_torch.ops import (
+        device_walk,
+        diag,
+        rowcb,
+    )
+
+    a, b, la, lb, st = args
+    reps, warm = (3, True) if times is not None else (1, False)
+    cells = float((la.to(torch.int64) * lb).sum())
+    ins = nbytes(*args)
+    out = {}
+
+    def check(key, kernel, plain, cmp, bound_of):
+        got, ms = timed(kernel, reps, warm)
+        want, pms = timed(plain, 1, warm=False)
+        out[key] = cmp(got, want)
+        if times is not None:
+            times[key] = (ms, pms, bound_of(got))
+        return got
+
+    check("K3'", lambda: rowcb.rowscan_score_fill(*args, params),
+          lambda: rowcb.rowscan_score_fill_plain(*args, params), max_err,
+          lambda f: bound(SWEEP_OPS * cells, ins + nbytes(f)))
+    d1, f1 = check(
+        "K1'", lambda: rowcb.rowdirs_fill(*args, params),
+        lambda: rowcb.rowdirs_fill_plain(*args, params),
+        lambda x, y: max(max_err_u8(x[0], y[0]), max_err(x[1], y[1])),
+        lambda r: bound(DIRS_OPS * cells, ins + nbytes(*r)))
+    d5, f5 = check(
+        "K5", lambda: diag.skew_dirs_fill(*args, params),
+        lambda: diag.skew_dirs_fill_plain(*args, params),
+        lambda x, y: max(max_err_u8(x[0], y[0]), max_err(x[1], y[1])),
+        lambda r: bound(SKEW_DIRS_OPS * cells, ins + nbytes(*r)))
+    # K5's finals are K3's; K3' and K1' share K1's finals where the two
+    # omega orders agree (not at non-dyadic g, h for K1')
+    out["K5"] = max(out["K5"], max_err(f5, rowcb.score_fill(*args, params)))
+    steps = int(la.max()) + int(lb.max()) + 1
+    for key, dirs, fin, layout in (("K2s", d1, f1, "row"),
+                                   ("K2s-skew", d5, f5, "skew")):
+        tb, _ = _end_choice(fin, torch.full_like(la, -1), params.h)
+        check(key,
+              lambda: device_walk.step_walk(dirs, la, lb, tb, steps, layout),
+              lambda: device_walk.step_walk_plain(dirs, la, lb, tb, steps,
+                                                  layout),
+              lambda x, y: max(max_err_u8(x[0], y[0]), max_err(x[1], y[1])),
+              # one dirs byte read a step taken
+              lambda r: bound(0, int((r[0] != 0).sum())
+                              + nbytes(la, lb, tb, *r)))
+    del d1, d5
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_backend_kernels(report):
+    """K3', K1', K5 and K2s (row and skew layouts) against their plain
+    versions on the card, bit for bit: 8 ragged pairs up to 2 kb with
+    every start type, rows too wide for shared memory (4 x 300 x 9 kb),
+    and 256 x 2 kb (seed 7, timed: the kernels line); K1' is K1's word &
+    0x3F on every cell at the default parameters."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+    from cse305_parallel_sequence_alignment_torch.ops import rowcb
+
+    params = ScoringParams()
+    rng = np.random.default_rng(19)
+    la = np.array([2048, 1, 700, 2048, 1500, 33, 1999, 0], np.int32)
+    lb = np.array([2048, 2000, 1024, 5, 1501, 2048, 2047, 9], np.int32)
+    st = np.array([-1, -2, -3, 1, 2, 3, -1, -2], np.int32)
+    a, b = bucket(rng, la, lb, 2048, 2048)
+    cases = [("ragged 8 x <=2 kb", (a, b, la, lb, st))]
+    wla = np.array([300, 299, 150, 1], np.int32)
+    wlb = np.array([9000, 8999, 4500, 9000], np.int32)
+    a, b = bucket(rng, wla, wlb, 300, 9000)
+    cases.append(("wide 4 x 300 x 9 kb (global scratch)",
+                  (a, b, wla, wlb, np.array([-1, -3, 2, -2], np.int32))))
+    rng7 = np.random.default_rng(7)
+    B, L = 256, 2048
+    full = np.full(B, L, np.int32)
+    cases.append(("256 x 2 kb", (ACGT[rng7.integers(0, 4, (B, L))],
+                                 ACGT[rng7.integers(0, 4, (B, L))], full,
+                                 full, np.full(B, -1, np.int32))))
+    for name, arrays in cases:
+        args = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                for x in arrays]
+        big = name.startswith("256")
+        times = {} if big else None
+        errs = backend_kernel_errs(args, params, times)
+        d8, _ = rowcb.rowdirs_fill(*args, params)
+        d16, _ = rowcb.rowcb_fill(*args, params)
+        codes = max_err_u8(d8, (u16(d16) & 0x3F).to(torch.uint8))
+        del d8, d16
+        torch.cuda.empty_cache()
+        line = ", ".join(f"{k} err {v}" for k, v in errs.items())
+        if big:
+            line += "; " + ", ".join(
+                f"{k} {ms:.3f} ms (plain {pms:.1f} ms)"
+                for k, (ms, pms, _) in times.items())
+        print(f"[backend-kernels] {name}: {line}; K1' = K1 & 0x3F: err "
+              f"{codes}", flush=True)
+        if any(errs.values()) or codes:
+            raise RuntimeError(f"a backend kernel disagrees with its plain "
+                               f"version on {name}: {errs}, K1' vs K1 "
+                               f"{codes}")
+        for key, err in errs.items():
+            rep = report[key]
+            rep["max_abs_err"] = max(rep["max_abs_err"], err)
+            if big:
+                rep["ms"], rep["plain_ms"], (rep["bound_ms"],
+                                             rep["bound_by"]) = times[key]
+        if big:
+            cells = float(B) * L * L
+            rates = {k: round(cells / times[k][0] / 1e6, 1)
+                     for k in ("K3'", "K1'", "K5")}
+            print(f"[backend-kernels] 256 x 2 kb: GCUPS {rates}; bounds "
+                  f"{ {k: round(v[2][0], 4) for k, v in times.items()} } ms",
+                  flush=True)
 
 
 def phase_long_kernels(report):
@@ -560,6 +716,14 @@ def mutate(rng, s, rate):
     return np.asarray(out, np.uint8)
 
 
+def global_pairs(B=256, L=2048, seed=7):
+    """The global path's pairs: B random ACGT pairs of L nt."""
+    rng = np.random.default_rng(seed)
+    return [(ACGT[rng.integers(0, 4, L)].tobytes().decode(),
+             ACGT[rng.integers(0, 4, L)].tobytes().decode())
+            for _ in range(B)]
+
+
 def phase_main_path():
     import torch
 
@@ -571,11 +735,8 @@ def phase_main_path():
         score_chain,
     )
 
-    rng = np.random.default_rng(7)
-    B, L = 256, 2048
-    pairs = [(ACGT[rng.integers(0, 4, L)].tobytes().decode(),
-              ACGT[rng.integers(0, 4, L)].tobytes().decode())
-             for _ in range(B)]
+    pairs = global_pairs()
+    B = len(pairs)
     al = BatchAligner()
     al.align_batch(pairs)  # warm-up
     walls, phases = [], []
@@ -690,6 +851,208 @@ def check_partition(runs):
               f"score_batch {t_whole:.3f} s; score {res.score} = chain "
               f"re-score = whole-pair K6 score; launches in align "
               f"{run['per']}", flush=True)
+
+
+def result_key(r):
+    return (r.score, list(r.chain), r.aligned_a, r.aligned_b, r.end_table)
+
+
+def backends_reference(runs):
+    """What the backends path must give, from the fused routes and
+    outside its launch window: ``align_batch`` and ``score_batch`` of the
+    global path's 256 x 2 kb pairs, and the fused partition of the
+    13,309 x 97,409 pair (``runs``)."""
+    from cse305_parallel_sequence_alignment_torch.models.batch import (
+        BatchAligner,
+    )
+
+    pairs = global_pairs()
+    al = BatchAligner()
+    return dict(pairs=pairs, align=[result_key(r)
+                                    for r in al.align_batch(pairs)],
+                score=al.score_batch(pairs),
+                part=next(r for r in runs if r["name"].startswith("13")))
+
+
+def phase_backends_main(ref, out):
+    """The backend routes alone, for the launch window: ``align_batch``
+    under "rowdirs" (K1' + K2s row) and "wavefront" (K5 + K2s skew) on the
+    global path's pairs (one warm-up, 2 timed runs each), ``score_batch``
+    under "pallas_rowscan" (K3'), and ``PartitionedAligner(p=0,
+    backend="wavefront").align`` of the 13,309 x 97,409 pair."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.models.batch import (
+        BatchAligner,
+    )
+    from cse305_parallel_sequence_alignment_torch.parallel.partition import (
+        PartitionedAligner,
+    )
+
+    pairs = ref["pairs"]
+    for be in ("rowdirs", "wavefront"):
+        al = BatchAligner(backend=be)
+        al.align_batch(pairs)  # warm-up
+        walls, phases = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = al.align_batch(pairs)
+            walls.append(time.perf_counter() - t0)
+            phases.append(dict(al.last_phases))
+        out[be] = dict(res=res, walls=walls, phases=phases)
+    al = BatchAligner(backend="pallas_rowscan")
+    al.score_batch(pairs)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["rowscan"] = al.score_batch(pairs)
+    out["t_rowscan"] = time.perf_counter() - t0
+    run = ref["part"]
+    pa = PartitionedAligner(p=0, backend="wavefront")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["part"] = pa.align(run["a"], run["b"])
+    out["t_part"] = time.perf_counter() - t0
+    out["part_phases"] = dict(pa.last_phases)
+
+
+def check_backends(ref, out):
+    """Gates of the backends path: every pair of both routes equal to the
+    fused route's result (score, chain, both rows, end table: integer
+    parameters, so all three routes compare exact values), the K3' scores
+    equal to K3's, the wavefront partition equal to the fused one."""
+    for be in ("rowdirs", "wavefront"):
+        got = [result_key(r) for r in out[be]["res"]]
+        bad = [k for k, (x, y) in enumerate(zip(got, ref["align"])) if x != y]
+        if bad or len(got) != len(ref["align"]):
+            raise RuntimeError(f"{be}: pairs {bad[:8]} differ from the "
+                               f"fused route")
+        walls, phases = out[be]["walls"], out[be]["phases"]
+        med = int(np.argmin(walls))
+        split = ", ".join(f"{k} {v:.2f}" for k, v in phases[med].items())
+        print(f"[backends] align_batch(backend={be!r}) 256 x 2 kb: walls "
+              f"{[round(w * 1e3, 2) for w in walls]} ms, "
+              f"{len(got) / walls[med]:.1f} pairs/s (faster run); phases "
+              f"{split}; all {len(got)} equal to the fused route", flush=True)
+    s, t = out["rowscan"]
+    if not (np.array_equal(s, ref["score"][0])
+            and np.array_equal(t, ref["score"][1])):
+        raise RuntimeError("pallas_rowscan score_batch differs from K3's")
+    print(f"[backends] score_batch(backend='pallas_rowscan') 256 x 2 kb: "
+          f"{out['t_rowscan'] * 1e3:.2f} ms, scores and tables equal to "
+          f"K3's", flush=True)
+    run, part = ref["part"], out["part"]
+    if result_key(part) != result_key(run["res"]):
+        raise RuntimeError("the wavefront partition differs from the fused "
+                           "one")
+    phases = ", ".join(f"{k} {v:.3f}" for k, v in out["part_phases"].items())
+    print(f"[backends] PartitionedAligner(p=0, backend='wavefront') "
+          f"{run['name']}: {out['t_part']:.3f} s ({phases}); score "
+          f"{part.score}, chain and rows equal to the fused partition's "
+          f"({run['t_align']:.3f} s)", flush=True)
+
+
+def phase_segment_kernels(report, ref, out):
+    """K5 and K2s (skew) against their plain versions, bit for bit, on the
+    very tensors that the wavefront partition's segment solves hand them:
+    the 13,309 x 97,409 pair again through ``PartitionedAligner(p=0,
+    backend="wavefront")``, outside the launch window, with the route's
+    fill and walk recording their inputs (that run must give the window's
+    result); then each recorded chunk through both versions of both
+    kernels, the kernels timed once after a warm-up."""
+    import unittest.mock
+
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+    from cse305_parallel_sequence_alignment_torch.models import batch
+    from cse305_parallel_sequence_alignment_torch.ops import device_walk, diag
+    from cse305_parallel_sequence_alignment_torch.parallel.partition import (
+        PartitionedAligner,
+    )
+
+    params = ScoringParams()
+    route = batch._ROUTES["wavefront"]
+    fills, walks = [], []
+
+    def fill(*args):
+        fills.append([x.clone() for x in args[:5]])
+        return route.fill(*args)
+
+    def walk(dirs, la, lb, tables, max_steps):
+        walks.append((la.clone(), lb.clone(), tables.clone(), max_steps))
+        return route.walk(dirs, la, lb, tables, max_steps)
+
+    t_start = time.perf_counter()
+    run = ref["part"]
+    with unittest.mock.patch.dict(
+            batch._ROUTES, wavefront=route._replace(fill=fill, walk=walk)):
+        res = PartitionedAligner(p=0, backend="wavefront").align(run["a"],
+                                                                  run["b"])
+    if result_key(res) != result_key(out["part"]):
+        raise RuntimeError("the recorded wavefront partition differs from "
+                           "the launch window's")
+    if not fills or len(fills) != len(walks):
+        raise RuntimeError(f"recorded {len(fills)} fills, {len(walks)} walks")
+    for k, (args, (la, lb, tb, steps)) in enumerate(zip(fills, walks)):
+        (d_k, f_k), ms5 = timed(lambda: diag.skew_dirs_fill(*args, params), 1)
+        (d_p, f_p), pms5 = timed(
+            lambda: diag.skew_dirs_fill_plain(*args, params), 1, warm=False)
+        e5 = max(max_err_u8(d_k, d_p), max_err(f_k, f_p))
+        del d_p
+        w_k, ms2 = timed(lambda: device_walk.step_walk(d_k, la, lb, tb, steps,
+                                                       "skew"), 1)
+        w_p, pms2 = timed(lambda: device_walk.step_walk_plain(
+            d_k, la, lb, tb, steps, "skew"), 1, warm=False)
+        e2 = max(max_err_u8(w_k[0], w_p[0]), max_err(w_k[1], w_p[1]))
+        B, m = args[0].shape
+        n = args[1].shape[1]
+        cells = float((args[2].to(torch.int64) * args[3]).sum())
+        print(f"[segment-kernels] wavefront partition chunk {k}: {B} x {m} x "
+              f"{n} (la {args[2].tolist()}, lb {args[3].tolist()}, start "
+              f"types {args[4].tolist()}, dirs {nbytes(d_k) / 1e9:.2f} GB): "
+              f"K5 err {e5} {ms5:.3f} ms (plain {pms5:.1f} ms), "
+              f"{cells / ms5 / 1e6:.1f} GCUPS; K2s-skew err {e2}, "
+              f"{int(w_k[1][0])} steps, {ms2:.3f} ms (plain {pms2:.1f} ms)",
+              flush=True)
+        if e5 or e2:
+            raise RuntimeError(f"K5 {e5} or K2s-skew {e2} disagrees with its "
+                               f"plain version at partition chunk {k}")
+        for key, err in (("K5", e5), ("K2s-skew", e2)):
+            report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
+        del d_k, w_k, w_p
+        torch.cuda.empty_cache()
+    print(f"[segment-kernels] {len(fills)} chunks of the wavefront partition "
+          f"held bit for bit in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
+PERF_MODES = {"global_score", "global_score_rowscan_kernel", "local_score",
+              "global_dirs", "semiglobal_dirs", "overlap_dirs",
+              "banded_score_W129", "banded_score_W513", "banded_dirs_W129",
+              "banded_dirs_W513", "longrow_score", "global_align_e2e"}
+
+
+def phase_perf():
+    """The ``perf`` command in a subprocess at its defaults with
+    ``--no-longseq``: every row parses, carries no error, names the card;
+    each is printed on a ``[perf]`` line."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", PKG, "perf", "--no-longseq"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=900)
+    if out.returncode != 0:
+        raise RuntimeError(f"perf failed (rc {out.returncode}):\n"
+                           f"{out.stderr[-4000:]}")
+    rows = [json.loads(line) for line in out.stdout.splitlines()]
+    for r in rows:
+        print(f"[perf] {json.dumps(r)}", flush=True)
+    modes = {r["mode"] for r in rows}
+    if modes != PERF_MODES or any("error" in r or r["backend"] != "cuda"
+                                  for r in rows):
+        raise RuntimeError(f"perf rows: modes {sorted(modes)}")
+    print(f"[perf] {len(rows)} rows in {time.perf_counter() - t0:.1f} s, "
+          f"none with an error", flush=True)
 
 
 def phase_cli():
@@ -1744,6 +2107,11 @@ def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
+    t_start = time.perf_counter()
+
+    def stamp(what):
+        print(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
     sys.path.insert(0, str(ROOT))
     from cse305_parallel_sequence_alignment_torch.models.overlap import (
         OverlapBatchAligner,
@@ -1862,15 +2230,45 @@ def main():
                     replaces="cse305_parallel_sequence_alignment_tpu/ops/"
                              "device_walk.py:163",
                     fn=device_walk.rle_walk, counter="band_launches"),
+        "K3'": dict(name="rowscan_score_fill (K3' row-sweep score fill)",
+                    route="cuda", source=f"{src}/rowcb.cu",
+                    replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                             "pallas_fill.py:750",
+                    fn=rowcb.rowscan_score_fill),
+        "K1'": dict(name="rowdirs_fill (K1' row-layout uint8 dirs fill)",
+                    route="cuda", source=f"{src}/rowcb.cu",
+                    replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                             "pallas_fill.py:508",
+                    fn=rowcb.rowdirs_fill),
+        "K5": dict(name="skew_dirs_fill (K5 anti-diagonal skew dirs fill)",
+                   route="cuda", source=f"{src}/diag.cu",
+                   replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                            "pallas_fill.py:310",
+                   fn=diag.skew_dirs_fill),
+        "K2s": dict(name="step_walk (K2s single-step walk, row layout)",
+                    route="cuda", source=f"{src}/walk.cu",
+                    replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                             "device_walk.py:35",
+                    fn=device_walk.step_walk),
+        "K2s-skew": dict(name="step_walk (K2s single-step walk, skew "
+                              "layout)", route="cuda",
+                         source=f"{src}/walk.cu",
+                         replaces="cse305_parallel_sequence_alignment_tpu/"
+                                  "ops/device_walk.py:35",
+                         fn=device_walk.step_walk, counter="skew_launches"),
     }
     for rep in report.values():
         # no single PyTorch call computes a Gotoh or SW fill or walk
         rep.update(max_abs_err=0.0, launches=0, library_ms=None)
         rep.setdefault("counter", "launches")
     phase_kernels(report)
+    stamp("kernels")
     phase_numerics(report)
+    stamp("numerics")
     phase_long_kernels(report)
+    stamp("long kernels")
     phase_golden()
+    stamp("golden")
 
     def run_path(name, drive, kernels):
         """Drive one main path with every counter at 0 first; each of
@@ -1889,23 +2287,38 @@ def main():
             rep["launches"] += counts[k]
 
     run_path("global", phase_main_path, ("K1", "K2", "K3"))
+    stamp("global path")
     mdata = protein_data()
     phase_matrix_kernels(report, mdata)
     matrix_out = {}
     run_path("matrix", lambda: phase_matrix_main(mdata, matrix_out),
              ("K4s", "K4d", "K2"))
     check_matrix(mdata, matrix_out)
+    stamp("matrix")
     del mdata, matrix_out
     runs = []
     run_path("partition", lambda: phase_partition(report, runs),
              ("K1", "K2", "K6", "K7"))
     check_partition(runs)
+    stamp("partition")
     phase_long_main(report, runs)
+    stamp("long kernels at the partition's shapes")
+    phase_backend_kernels(report)
+    stamp("backend kernels")
+    bref, bout = backends_reference(runs), {}
+    run_path("backends", lambda: phase_backends_main(bref, bout),
+             ("K3'", "K1'", "K5", "K2s", "K2s-skew"))
+    check_backends(bref, bout)
+    stamp("backends path")
+    phase_segment_kernels(report, bref, bout)
+    stamp("backend kernels at the partition's segments")
+    del bref, bout
     phase_banded_kernels(report, runs)
     banded_out = {}
     run_path("banded", lambda: phase_banded_main(runs, banded_out),
              ("K12s", "K12d", "K2b"))
     check_banded(report, runs, banded_out)
+    stamp("banded")
     del banded_out
     data = local_data()
     phase_local_kernels(report, data)
@@ -1913,9 +2326,11 @@ def main():
     run_path("local", lambda: phase_local_main(data, local_out),
              ("K9s", "K9d", "K9w"))
     check_local(data, local_out)
+    stamp("local")
     del data, local_out
     sgd, ovd = sg_data(), ov_data()
     phase_free_kernels(report, sgd, ovd)
+    stamp("free-end kernels")
     for mode, cls, d, kernels in (
             ("semiglobal", SemiGlobalBatchAligner, sgd,
              ("K10d", "K10s", "K2")),
@@ -1923,7 +2338,11 @@ def main():
         free_out = {}
         run_path(mode, lambda: phase_free_main(cls, d, free_out), kernels)
         check_free(mode, d, free_out)
+        stamp(f"{mode} path")
     phase_cli()
+    stamp("cli")
+    phase_perf()
+    stamp("perf")
 
     print(json.dumps({"kernels": [
         {k: rep[k] for k in ("name", "route", "source", "replaces",

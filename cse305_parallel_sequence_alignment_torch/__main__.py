@@ -10,6 +10,7 @@ output format, plus ``--device`` ("cuda" by default):
   batch      score/align many pairs from a FASTA file
   partition  balanced-partition alignment of one long pair
   longscore  score of one long pair through the long fill (K6)
+  perf       GCUPS sweep of the kernels (JSON lines)
   info       versions and devices
 """
 
@@ -247,6 +248,15 @@ def cmd_longscore(args):
     return 0
 
 
+def cmd_perf(args):
+    from cse305_parallel_sequence_alignment_torch.harness.perfreport import (
+        run_report,
+    )
+    run_report(lengths=tuple(args.lengths), batches=tuple(args.batches),
+               include_longseq=not args.no_longseq, device=args.device)
+    return 0
+
+
 def cmd_info(args):
     import torch
     cuda = torch.cuda.is_available()
@@ -341,6 +351,15 @@ def main(argv=None):
     add_config_args(p)
     _add_device_arg(p)
     p.set_defaults(fn=cmd_longscore)
+
+    p = sub.add_parser("perf", help="GCUPS sweep report (JSON lines)")
+    p.add_argument("--lengths", type=int, nargs="+", default=[512, 2048])
+    p.add_argument("--batches", type=int, nargs="+", default=[64, 256])
+    p.add_argument("--no-longseq", action="store_true",
+                   help="leave out the multi-device longseq rows (not "
+                        "ported yet; required)")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_perf)
 
     p = sub.add_parser("info", help="versions and devices")
     p.set_defaults(fn=cmd_info)

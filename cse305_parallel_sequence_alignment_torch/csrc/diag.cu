@@ -10,6 +10,14 @@
 //   mode 2, K11s: replaces the XLA wavefront overlap_score_batch
 //     (ops/overlap.py:124), which the JAX overlap aligner's score path runs
 //     on every backend; best over the last row or the last column.
+//   mode 0 with DIRS, K5 skew_dirs: replaces _dirs_kernel
+//     (ops/pallas_fill.py:310), the same global sweep storing one uint8 code
+//     d1 | d2 << 2 | d3 << 4 a cell in the skew layout dirs[i + j, pair, j],
+//     0 outside the interior (row 0, column 0, i outside 1..m), and the
+//     finals. Its codes compare the rounded candidates as _diag_step does:
+//     d1 the (i-1, j-1) triple, d2 T1 - gh, T2 - g, T3 - gh at (i, j-1), d3
+//     T1 - gh, T2 - gh, T3 - g at (i-1, j), tie order T1 >= T2 >= T3. The
+//     values are K3's: max(a, c) - gh = max(a - gh, c - gh) exactly.
 //
 // Design. One CTA per pair sweeps the anti-diagonals d = 1..m+n; thread t
 // owns the columns j = t, t + blockDim, ... of every diagonal. Three
@@ -26,7 +34,12 @@
 // traffic but the two sequences and 12-16 bytes a pair out: 16,384 pairs of
 // 250 x 1,024 are 4.2 G cells, ~2 ms at the fp32 peak. What binds is the
 // per-diagonal barrier and the dependent chain d-2 -> d-1 -> d inside each
-// CTA; several CTAs share an SM to hide it.
+// CTA; several CTAs share an SM to hide it. K5 also stores the skew bytes,
+// (m+n+1)(n+1) a pair: 2.15 GB at 256 x 2 kb, 0.64 ms of HBM, so it is bound
+// by bytes. Every mode sweeps only the cells of a diagonal with 0 <= i <= m,
+// contiguous columns, so K5's stores coalesce; its wrapper zeroes the array
+// first at the card's full memset rate, which saves a partition segment
+// (3.3 k x 27 k, one CTA) ~8 of 9 byte stores.
 //
 // Numerics. float32 with true -inf and the JAX order of operations (built
 // with -fmad=false, so no multiply-add is contracted):
@@ -47,6 +60,10 @@ namespace {
 constexpr int kMaxThreads = 1024;
 constexpr float kNegInf = -INFINITY;  // usable in host and device code
 constexpr int kReduceBytes = 1024;  // per-warp best (value, d, table, j)
+
+__device__ __forceinline__ int argmax3(float c1, float c2, float c3) {
+    return (c1 >= c2 && c1 >= c3) ? 0 : (c2 >= c3 ? 1 : 2);
+}
 
 // (v1, d1, t1, j1) ranks before (v2, d2, t2, j2): larger value, then the
 // smaller d, then the smaller table, then the smaller column. Mode 1 passes
@@ -81,13 +98,13 @@ struct Best {
     }
 };
 
-template <int MODE>
+template <int MODE, bool DIRS>
 __global__ void __launch_bounds__(kMaxThreads)
 diag_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
             const int32_t* __restrict__ la, const int32_t* __restrict__ lb,
             const int32_t* __restrict__ st, float* __restrict__ out,
-            char* __restrict__ scratch, int m, int n, float g, float h,
-            float match, float mismatch) {
+            uint8_t* __restrict__ dirs, char* __restrict__ scratch, int B,
+            int m, int n, float g, float h, float match, float mismatch) {
     extern __shared__ __align__(16) char smem[];
     const int pair = blockIdx.x;
     const int ncol = n + 1;
@@ -151,16 +168,33 @@ diag_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
         float* C1 = T(cur, 0);
         float* C2 = T(cur, 1);
         float* C3 = T(cur, 2);
-        for (int j = tid; j < ncol; j += nthr) {
+        uint8_t* drow = DIRS ? dirs + ((size_t)d * B + pair) * ncol : nullptr;
+        // the cells with 0 <= i <= m alone: no cell of the sweep reads
+        // another, so their buffer slots keep stale values
+        for (int j = max(0, d - m) + tid; j < ncol && j <= d; j += nthr) {
             const int i = d - j;
-            if (i < 0 || i > m) continue;
             float t1 = NEG, t2 = NEG, t3 = NEG;
+            int packed = 0;
             if (i > 0 && j > 0) {
                 const float f =
                     __ldg(arow + i - 1) == __ldg(brow + j - 1) ? match : mismatch;
-                t1 = f + fmaxf(fmaxf(Q1[j - 1], Q2[j - 1]), Q3[j - 1]);
-                t2 = fmaxf(fmaxf(P1[j - 1], P3[j - 1]) - gh, P2[j - 1] - g);
-                t3 = fmaxf(fmaxf(P1[j], P2[j]) - gh, P3[j] - g);
+                if (DIRS) {
+                    const float s1 = Q1[j - 1], s2 = Q2[j - 1], s3 = Q3[j - 1];
+                    const float c2a = P1[j - 1] - gh, c2b = P2[j - 1] - g,
+                                c2c = P3[j - 1] - gh;
+                    const float c3a = P1[j] - gh, c3b = P2[j] - gh,
+                                c3c = P3[j] - g;
+                    t1 = f + fmaxf(fmaxf(s1, s2), s3);
+                    t2 = fmaxf(fmaxf(c2a, c2b), c2c);
+                    t3 = fmaxf(fmaxf(c3a, c3b), c3c);
+                    packed = argmax3(s1, s2, s3) |
+                             (argmax3(c2a, c2b, c2c) << 2) |
+                             (argmax3(c3a, c3b, c3c) << 4);
+                } else {
+                    t1 = f + fmaxf(fmaxf(Q1[j - 1], Q2[j - 1]), Q3[j - 1]);
+                    t2 = fmaxf(fmaxf(P1[j - 1], P3[j - 1]) - gh, P2[j - 1] - g);
+                    t3 = fmaxf(fmaxf(P1[j], P2[j]) - gh, P3[j] - g);
+                }
             } else if (MODE == 0) {
                 if (i == 0) {  // row 0 (quirk: start +2 acts as -1 here)
                     const float jg = g * (float)j;
@@ -179,6 +213,7 @@ diag_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
             C1[j] = t1;
             C2[j] = t2;
             C3[j] = t3;
+            if (DIRS) drow[j] = (uint8_t)packed;
             if (MODE == 0) {
                 if (i == lA && j == lB) {
                     fin[0] = t1;
@@ -238,17 +273,22 @@ diag_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     }
 }
 
-template <int MODE>
+template <int MODE, bool DIRS>
 int launch(const uint8_t* a, const uint8_t* b, const int32_t* la,
-           const int32_t* lb, const int32_t* st, float* out, char* scratch,
-           int B, int m, int n, int threads, size_t smem, float g, float h,
-           float match, float mismatch, cudaStream_t stream) {
-    auto kern = diag_kernel<MODE>;
+           const int32_t* lb, const int32_t* st, float* out, uint8_t* dirs,
+           char* scratch, int B, int m, int n, int threads, size_t smem,
+           float g, float h, float match, float mismatch,
+           cudaStream_t stream) {
+    if (B == 0) return 0;
+    if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+        smem < (size_t)kReduceBytes)
+        return (int)cudaErrorInvalidValue;
+    auto kern = diag_kernel<MODE, DIRS>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    kern<<<B, threads, smem, stream>>>(a, b, la, lb, st, out, scratch, m, n,
-                                       g, h, match, mismatch);
+    kern<<<B, threads, smem, stream>>>(a, b, la, lb, st, out, dirs, scratch,
+                                       B, m, n, g, h, match, mismatch);
     return (int)cudaGetLastError();
 }
 
@@ -266,20 +306,32 @@ int diag_fill(const uint8_t* a, const uint8_t* b, const int32_t* la,
               char* scratch, int mode, int B, int m, int n, int threads,
               long long smem, float g, float h, float match, float mismatch,
               void* stream) {
-    if (B == 0) return 0;
-    if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
-        smem < (long long)kReduceBytes || mode < 0 || mode > 2)
-        return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     const size_t sm = (size_t)smem;
     if (mode == 0)
-        return launch<0>(a, b, la, lb, st, out, scratch, B, m, n, threads, sm,
-                         g, h, match, mismatch, s);
+        return launch<0, false>(a, b, la, lb, st, out, nullptr, scratch, B, m,
+                                n, threads, sm, g, h, match, mismatch, s);
     if (mode == 1)
-        return launch<1>(a, b, la, lb, st, out, scratch, B, m, n, threads, sm,
-                         g, h, match, mismatch, s);
-    return launch<2>(a, b, la, lb, st, out, scratch, B, m, n, threads, sm, g,
-                     h, match, mismatch, s);
+        return launch<1, false>(a, b, la, lb, st, out, nullptr, scratch, B, m,
+                                n, threads, sm, g, h, match, mismatch, s);
+    if (mode == 2)
+        return launch<2, false>(a, b, la, lb, st, out, nullptr, scratch, B, m,
+                                n, threads, sm, g, h, match, mismatch, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+// K5: diag_fill's global mode storing the skew dirs. dirs: (m+n+1, B, n+1)
+// u8, zeroed by the caller (the kernel writes the cells with 0 <= i <= m);
+// the other arguments as diag_fill's in mode 0.
+// Returns a cudaError_t code.
+int skew_dirs(const uint8_t* a, const uint8_t* b, const int32_t* la,
+              const int32_t* lb, const int32_t* st, float* out,
+              uint8_t* dirs, char* scratch, int B, int m, int n, int threads,
+              long long smem, float g, float h, float match, float mismatch,
+              void* stream) {
+    return launch<0, true>(a, b, la, lb, st, out, dirs, scratch, B, m, n,
+                           threads, (size_t)smem, g, h, match, mismatch,
+                           (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
 // Gotoh row-sweep dirs fills for the H100 (sm_90a), plain C interface.
 //
-// One template, three modes and two flags (wrappers in ops/rowcb.py):
+// One template, three modes, a substitution-table flag, what it stores a
+// cell (nothing, dirs16+runs or uint8 codes) and the omega order (wrappers
+// in ops/rowcb.py):
 //   mode 0, K1 rowcb_fill: replaces the TPU kernel _rowcb_kernel
 //     (cse305_parallel_sequence_alignment_tpu/ops/pallas_rowcb.py:126) with
 //     want_dirs=True, with_runs=True, k1=0: the uint16 "dirs16+runs" cell of
@@ -21,8 +23,15 @@
 //   TABLE without DIRS, K4s: replaces _submat_kernel
 //     (ops/pallas_fill.py:1110), the same sweep storing no dirs and no run
 //     state, so its finals are K4d's finals bit for bit.
-// K1, K10d and K11d are the instantiations with TABLE = false, DIRS = true.
-// The score-only K3 is the anti-diagonal kernel of csrc/diag.cu.
+//   no TABLE, no DIRS (mode 0), K3' rowscan_score_fill: replaces
+//     _rowscan_kernel (ops/pallas_fill.py:750), the global row-sweep score
+//     fill; its finals are K1's finals bit for bit.
+//   DIRS8 with the free modes' omega order (mode 0), K1' rowdirs_fill:
+//     replaces _rowdirs_kernel (ops/pallas_fill.py:508) with with_runs=False,
+//     one uint8 code d1 | d2 << 2 | d3 << 4 a cell; DIRS16 in that order is
+//     the same kernel's with_runs=True form (K1's cell encoding).
+// K1, K10d and K11d are the instantiations with TABLE = false, DIRS16. The
+// score-only K3 is the anti-diagonal kernel of csrc/diag.cu.
 //
 // Design. One CTA per pair; the row loop runs inside the block (it takes
 // the place of the TPU's sequential row-block grid axis). Each thread owns
@@ -43,7 +52,9 @@
 // a millisecond of HBM bandwidth, so the fill is bound by the serial chain
 // of each row (two passes over a thread's chunk) and two block barriers per
 // row, not by memory. More pairs per SM hide the latency; the chunk width C
-// trades barrier count against chain length.
+// trades barrier count against chain length. K1' stores one byte a cell
+// (~1.1 GB at 256 x 2 kb, 0.32 ms of HBM) and K3' nothing, so both are
+// bound the same way.
 //
 // Numerics. float32 with true -inf and the operation order that XLA runs
 // for the JAX kernels (built with -fmad=false, so no multiply-add is
@@ -51,8 +62,10 @@
 //   T1 = fb + max3(prev row, j-1)
 //   T3 = max(max(T1,T2)(prev, j) - gh, T3(prev, j) - g)
 //   T2 = prefixmax(omega) - g*j with
-//   omega = (g*j + max(T1,T3)(j-1)) - gh           (mode 0)
-//   omega = (g*j - gh) + max(T1,T3)(j-1)           (modes 1, 2)
+//   omega = (g*j + max(T1,T3)(j-1)) - gh           (mode 0: K1, K3', K4)
+//   omega = (g*j - gh) + max(T1,T3)(j-1)           (modes 1, 2 and K1')
+// (_rowdirs_kernel computes jgc = g*j - g - h before adding, as the free
+// modes' kernels do; at non-dyadic g, h the two orders round T2 apart.)
 // Direction codes use the tie order T1 >= T2 >= T3 (quirk B3).
 
 #include <cmath>
@@ -66,6 +79,9 @@ constexpr int kMaxThreads = 1024;
 constexpr float kNegInf = -INFINITY;  // usable in host and device code
 constexpr int kRunCap = 255;
 constexpr int kHeadBytes = 512;  // warp totals, then the best reduction
+// what a sweep stores for each cell: nothing, the uint16 dirs16+runs word,
+// or the uint8 codes alone
+constexpr int kNoDirs = 0, kDirs16 = 1, kDirs8 = 2;
 
 __device__ __forceinline__ int argmax3(float c1, float c2, float c3) {
     return (c1 >= c2 && c1 >= c3) ? 0 : (c2 >= c3 ? 1 : 2);
@@ -119,14 +135,17 @@ struct Rows {
     __device__ uint16_t* P(int buf) const { return p + (size_t)buf * ncol; }
 };
 
-template <int MODE, bool TABLE, bool DIRS>
+// FREE: omega in the free modes' order (K1'); modes 1 and 2 always use it.
+template <int MODE, bool TABLE, int DIRS, bool FREE>
 __global__ void __launch_bounds__(kMaxThreads)
 sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
              const int32_t* __restrict__ la, const int32_t* __restrict__ lb,
-             const int32_t* __restrict__ st, uint16_t* __restrict__ dirs,
+             const int32_t* __restrict__ st, void* __restrict__ dirs,
              float* __restrict__ out, char* __restrict__ scratch, int B,
              int m, int n, int C, float g, float h, float match,
              float mismatch, const float* __restrict__ table, int k1) {
+    constexpr bool RUNS = DIRS == kDirs16;  // the packed word carries runs
+    constexpr bool FREE_ORDER = MODE != 0 || FREE;
     extern __shared__ __align__(16) char smem[];
     const int pair = blockIdx.x;
     const int ncol = n + 1;
@@ -145,7 +164,7 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     float* tab = reinterpret_cast<float*>(smem + kHeadBytes + bext_bytes);
     const size_t tab_bytes =
         TABLE ? (((size_t)k1 * k1 * 4 + 15) & ~(size_t)15) : 0;
-    const size_t row_bytes = (size_t)ncol * (DIRS ? 28 : 24);
+    const size_t row_bytes = (size_t)ncol * (RUNS ? 28 : 24);
     char* rowmem = scratch ? scratch + (size_t)pair * ((row_bytes + 15) & ~(size_t)15)
                            : smem + kHeadBytes + bext_bytes + tab_bytes;
     Rows R{reinterpret_cast<float*>(rowmem),
@@ -164,7 +183,8 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     const int c0 = tid * C;
     const int c1 = min(c0 + C, ncol);
     const size_t row_stride = (size_t)B * ncol;  // dirs (m+1, B, ncol)
-    uint16_t* drow = dirs + (size_t)pair * ncol;
+    uint16_t* drow = static_cast<uint16_t*>(dirs) + (size_t)pair * ncol;
+    uint8_t* drow8 = static_cast<uint8_t*>(dirs) + (size_t)pair * ncol;
     float* fin = out + (size_t)pair * (MODE == 0 ? 3 : 4);
     Best best;
 
@@ -185,9 +205,11 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
         R.T(0, 0)[j] = r1;
         R.T(0, 1)[j] = r2;
         R.T(0, 2)[j] = r3;
-        if (DIRS) {
+        if (RUNS) {
             R.P(0)[j] = 0;
             drow[j] = 0;
+        } else if (DIRS == kDirs8) {
+            drow8[j] = 0;
         }
         if (lA == 0) {
             if (MODE == 0 && j == lB) {
@@ -258,7 +280,7 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
                     const float jg = g * (float)j;
                     t1 = fb + lm3;
                     t3 = fmaxf(mp12 - gh, p3 - g);
-                    omega = MODE == 0 ? (jg + m13l) - gh : (jg - gh) + m13l;
+                    omega = FREE_ORDER ? (jg - gh) + m13l : (jg + m13l) - gh;
                 }
                 run_max = fmaxf(run_max, omega);
                 Q1[j] = t1;
@@ -284,41 +306,46 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
         // pass 2: T2, directions, run lengths, finals and end candidates
         if (c0 < c1) {
             int am3l = 0, d2l = 0, pwl = 0;  // column 0 sees zeros
-            if (DIRS && c0 > 0) {
+            if (DIRS != kNoDirs && c0 > 0) {
                 const int jl = c0 - 1;
                 am3l = argmax3(P1[jl], P2[jl], P3[jl]);
-                pwl = R.P(prv)[jl];
+                if (RUNS) pwl = R.P(prv)[jl];
                 const float t2l = jl == 0 ? NEG : excl - g * (float)jl;
                 d2l = argmax3(Q1[jl] - h, t2l, Q3[jl] - h);
             }
             const uint16_t* PW = R.P(prv);
             uint16_t* QW = R.P(cur);
             uint16_t* dout = drow + (size_t)i * row_stride;
+            uint8_t* dout8 = drow8 + (size_t)i * row_stride;
             for (int j = c0; j < c1; ++j) {
                 const float pm = fmaxf(Q2[j], excl);
                 const float t2 = j == 0 ? NEG : pm - g * (float)j;
                 Q2[j] = t2;
                 const float t1 = Q1[j], t3 = Q3[j];
-                if (DIRS) {
+                if (DIRS != kNoDirs) {
                     const float p1 = P1[j], p2 = P2[j], p3 = P3[j];
                     const int d1 = am3l;
                     const int d2 = d2l;
                     const int d3 = argmax3(p1, p2, p3 + h);
-                    const int r_prev = pwl >> 8;
-                    const int ca_prev = (pwl >> 6) & 3;
-                    int r_cur = 0, ca_cur = d1;
-                    if (d1 == 0) {
-                        r_cur = min(r_prev + 1, kRunCap);
-                        ca_cur = r_prev >= kRunCap ? 0 : ca_prev;
+                    const int codes = d1 | (d2 << 2) | (d3 << 4);
+                    if (RUNS) {
+                        const int r_prev = pwl >> 8;
+                        const int ca_prev = (pwl >> 6) & 3;
+                        int r_cur = 0, ca_cur = d1;
+                        if (d1 == 0) {
+                            r_cur = min(r_prev + 1, kRunCap);
+                            ca_cur = r_prev >= kRunCap ? 0 : ca_prev;
+                        }
+                        const uint16_t word = (uint16_t)(
+                            codes | (ca_cur << 6) | (r_cur << 8));
+                        QW[j] = word;
+                        dout[j] = word;
+                    } else {
+                        dout8[j] = (uint8_t)codes;
                     }
-                    const uint16_t word = (uint16_t)(
-                        d1 | (d2 << 2) | (d3 << 4) | (ca_cur << 6) |
-                        (r_cur << 8));
-                    QW[j] = word;
-                    dout[j] = word;
                     am3l = argmax3(p1, p2, p3);
                     d2l = argmax3(t1 - h, t2, t3 - h);
-                    pwl = PW[j];
+                    if (RUNS) pwl = PW[j];
                 }
                 if (MODE == 0) {
                     if (i == lA && j == lB) {
@@ -374,13 +401,13 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     }
 }
 
-template <int MODE, bool TABLE, bool DIRS>
+template <int MODE, bool TABLE, int DIRS, bool FREE>
 int launch(const uint8_t* a, const uint8_t* b, const int32_t* la,
-           const int32_t* lb, const int32_t* st, uint16_t* dirs, float* out,
+           const int32_t* lb, const int32_t* st, void* dirs, float* out,
            char* scratch, int B, int m, int n, int C, int threads,
            size_t smem, float g, float h, float match, float mismatch,
            const float* table, int k1, cudaStream_t stream) {
-    auto kern = sweep_kernel<MODE, TABLE, DIRS>;
+    auto kern = sweep_kernel<MODE, TABLE, DIRS, FREE>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
@@ -394,49 +421,52 @@ int launch(const uint8_t* a, const uint8_t* b, const int32_t* la,
 
 extern "C" {
 
-// mode 0 (K1), 1 (K10d) or 2 (K11d); with a table (mode 0 only) K4d, or
-// K4s when want_dirs is 0 (dirs unused, may be null). dirs: (m+1, B, n+1)
-// uint16; out: (B, 3) f32 finals in mode 0, (B, 4) f32 [score, end_table,
-// end_i, end_j] in modes 1 and 2; a: (B, m) u8; b: (B, n) u8 (codes below
-// k1 with a table); la/lb/st: (B,) i32 (st read in mode 0 only); table:
-// (k1, k1) f32 row-major, 2 <= k1 <= 255, or null; C columns per thread,
-// threads a multiple of 32 with threads * C >= n + 1; smem: 512 + (n+1
-// rounded up to 16) bytes, plus k1 * k1 * 4 rounded up to 16 with a table,
-// plus the row buffers unless scratch holds B of them, (n+1) * 28 bytes
-// each (24 without dirs) rounded up to 16. Returns a cudaError_t code.
+// mode 0 (K1), 1 (K10d) or 2 (K11d). dirs_kind 1 stores the uint16
+// dirs16+runs word, 2 the uint8 codes alone (mode 0, free order only: K1'),
+// 0 nothing (mode 0: K3', or K4s with a table; dirs unused, may be null).
+// free_order (mode 0, no table) takes omega in the free modes' order (K1').
+// A table (mode 0, dirs_kind 0 or 1, K1's order) gives K4s or K4d.
+// dirs: (m+1, B, n+1) uint16 or uint8; out: (B, 3) f32 finals in mode 0,
+// (B, 4) f32 [score, end_table, end_i, end_j] in modes 1 and 2; a: (B, m)
+// u8; b: (B, n) u8 (codes below k1 with a table); la/lb/st: (B,) i32 (st
+// read in mode 0 only); table: (k1, k1) f32 row-major, 2 <= k1 <= 255, or
+// null; C columns per thread, threads a multiple of 32 with threads * C >=
+// n + 1; smem: 512 + (n+1 rounded up to 16) bytes, plus k1 * k1 * 4 rounded
+// up to 16 with a table, plus the row buffers unless scratch holds B of
+// them, (n+1) * 28 bytes each with dirs_kind 1 (24 otherwise) rounded up to
+// 16. Returns a cudaError_t code.
 int rowcb_fill(const uint8_t* a, const uint8_t* b, const int32_t* la,
-               const int32_t* lb, const int32_t* st, uint16_t* dirs,
+               const int32_t* lb, const int32_t* st, void* dirs,
                float* out, char* scratch, int mode, int B, int m, int n,
                int C, int threads, long long smem, float g, float h,
                float match, float mismatch, const float* table, int k1,
-               int want_dirs, void* stream) {
+               int dirs_kind, int free_order, void* stream) {
     if (B == 0) return 0;
     if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
         (long long)threads * C < n + 1 || mode < 0 || mode > 2 ||
-        (table && (mode != 0 || k1 < 2 || k1 > 255)) ||
-        (!table && !want_dirs))
+        dirs_kind < kNoDirs || dirs_kind > kDirs8 ||
+        (mode != 0 && (dirs_kind != kDirs16 || table)) ||
+        (table && (k1 < 2 || k1 > 255 || dirs_kind == kDirs8 ||
+                   free_order)) ||
+        (dirs_kind == kDirs8 && !free_order) ||
+        (dirs_kind == kNoDirs && free_order))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     const size_t sm = (size_t)smem;
-    if (table && want_dirs)
-        return launch<0, true, true>(a, b, la, lb, st, dirs, out, scratch, B,
-                                     m, n, C, threads, sm, g, h, match,
-                                     mismatch, table, k1, s);
-    if (table)
-        return launch<0, true, false>(a, b, la, lb, st, dirs, out, scratch,
-                                      B, m, n, C, threads, sm, g, h, match,
-                                      mismatch, table, k1, s);
-    if (mode == 0)
-        return launch<0, false, true>(a, b, la, lb, st, dirs, out, scratch,
-                                      B, m, n, C, threads, sm, g, h, match,
-                                      mismatch, nullptr, 0, s);
-    if (mode == 1)
-        return launch<1, false, true>(a, b, la, lb, st, dirs, out, scratch,
-                                      B, m, n, C, threads, sm, g, h, match,
-                                      mismatch, nullptr, 0, s);
-    return launch<2, false, true>(a, b, la, lb, st, dirs, out, scratch, B,
-                                  m, n, C, threads, sm, g, h, match,
-                                  mismatch, nullptr, 0, s);
+#define ROWCB_LAUNCH(MODE, TABLE, DIRS, FREE)                                 \
+    return launch<MODE, TABLE, DIRS, FREE>(a, b, la, lb, st, dirs, out,     \
+                                           scratch, B, m, n, C, threads, sm, \
+                                           g, h, match, mismatch, table, k1, \
+                                           s)
+    if (table && dirs_kind == kDirs16) ROWCB_LAUNCH(0, true, kDirs16, false);
+    if (table) ROWCB_LAUNCH(0, true, kNoDirs, false);
+    if (mode == 1) ROWCB_LAUNCH(1, false, kDirs16, true);
+    if (mode == 2) ROWCB_LAUNCH(2, false, kDirs16, true);
+    if (dirs_kind == kNoDirs) ROWCB_LAUNCH(0, false, kNoDirs, false);
+    if (dirs_kind == kDirs8) ROWCB_LAUNCH(0, false, kDirs8, true);
+    if (free_order) ROWCB_LAUNCH(0, false, kDirs16, true);
+    ROWCB_LAUNCH(0, false, kDirs16, false);
+#undef ROWCB_LAUNCH
 }
 
 }  // extern "C"

@@ -18,6 +18,28 @@ replay, and K4s (``submat_score_fill``) in ``score_batch`` at every
 bucket width, as the JAX package routes the matrix branch before its
 long-fill threshold.
 
+``backend`` takes the JAX package's values, with their meaning on an
+accelerator, and never changes by itself:
+
+- "auto" and "pallas" (the default): the routes above;
+- "pallas_rowscan": ``score_batch`` runs K3', the global row-sweep score
+  fill (``rowscan_score_fill``), at every bucket width; ``align_batch``
+  the fused route;
+- "wavefront": ``score_batch`` runs K3 at every width; ``align_batch``
+  runs K5, the anti-diagonal fill storing skew uint8 dirs
+  (``skew_dirs_fill``), the end choice and K2s, the single-step walk
+  (``step_walk``, layout "skew"), then ``replay_steps`` on the host;
+- "rowdirs": ``score_batch`` as "pallas"; ``align_batch`` runs K1', the
+  row sweep storing uint8 codes (``rowdirs_fill``), and K2s in layout
+  "row". The JAX package reaches this route only when its fused dispatch
+  raises; the port names it instead of falling back to it.
+
+Each backend is one ``_Route`` record of ``_ROUTES`` (score fill, dirs
+fill, walk, host replay, dirs bytes a pair). The non-fused routes take
+per-pair start types, so a mixed-type chunk is one launch; their chunks
+follow their own dirs bytes. A substitution
+matrix runs only on "auto"/"pallas" and raises on any other backend.
+
 The aligner's ``device`` is explicit ("cuda" by default, or "cpu" for
 the plain PyTorch versions of the kernels); it is never switched.
 """
@@ -25,7 +47,9 @@ the plain PyTorch versions of the kernels); it is never switched.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
+import typing
 
 import numpy as np
 import torch
@@ -41,13 +65,72 @@ from cse305_parallel_sequence_alignment_torch.core import (
     matrix_from_jax,
 )
 from cse305_parallel_sequence_alignment_torch.native import walker
-from cse305_parallel_sequence_alignment_torch.ops.device_walk import rle_walk
+from cse305_parallel_sequence_alignment_torch.ops.device_walk import (
+    replay_steps,
+    rle_walk,
+    step_walk,
+)
+from cse305_parallel_sequence_alignment_torch.ops.diag import skew_dirs_fill
 from cse305_parallel_sequence_alignment_torch.ops.longrow import long_fill
 from cse305_parallel_sequence_alignment_torch.ops.rowcb import (
     rowcb_fill,
+    rowdirs_fill,
+    rowscan_score_fill,
     score_fill,
     submat_score_fill,
 )
+
+
+def _replay_rle(entries, used, la, lb, tables, mode, offsets, chunk):
+    """Host replay of the first ``used`` rounds of K2's entries."""
+    return walker.replay_rle(entries[:used].T, la, lb, tables, mode,
+                             offsets=offsets, chunk=chunk)
+
+
+class _Route(typing.NamedTuple):
+    """What one ``backend`` runs. ``score_batch``: the ``score`` fill,
+    and whether buckets wider than ``long_threshold`` go to K6 instead
+    (``long``). ``align_batch``: the dirs ``fill`` (a, b, la, lb, st,
+    params, table) -> (dirs, finals), the device ``walk`` (dirs, la, lb,
+    tables, max_steps) -> (rounds (max_steps, B), used), the host
+    ``replay`` (rounds, used, la, lb, tables, mode, offsets, chunk) ->
+    (tt, ii, jj, lens), the ``dirs_bytes`` of one pair of a (bm, bn)
+    bucket, and ``ship``: 1/ship of the rounds (256 at least) go to the
+    host with the scores, the rest only if a walk ran past them."""
+
+    score: typing.Callable
+    long: bool
+    fill: typing.Callable
+    walk: typing.Callable
+    replay: typing.Callable
+    dirs_bytes: typing.Callable
+    ship: int
+
+
+# K1 dirs16+runs, K2 run-length rounds (a few per diagonal run)
+_FUSED = _Route(score_fill, True, rowcb_fill, rle_walk, _replay_rle,
+                lambda bm, bn: 2 * (bm + 1) * (bn + 1), 16)
+
+
+def _step_route(score, long, fill, layout, dirs_bytes):
+    """A non-fused route: uint8 dirs, K2s single steps (all shipped)."""
+    return _Route(score, long,
+                  lambda a, b, la, lb, st, params, table: fill(
+                      a, b, la, lb, st, params),
+                  functools.partial(step_walk, layout=layout), replay_steps,
+                  dirs_bytes, 1)
+
+
+_ROUTES = {
+    "auto": _FUSED,
+    "pallas": _FUSED,
+    "pallas_rowscan": _FUSED._replace(score=rowscan_score_fill, long=False),
+    "wavefront": _step_route(score_fill, False, skew_dirs_fill, "skew",
+                             lambda bm, bn: (bm + bn + 1) * (bn + 1)),
+    "rowdirs": _step_route(score_fill, True, rowdirs_fill, "row",
+                           lambda bm, bn: (bm + 1) * (bn + 1)),
+}
+BACKENDS = tuple(_ROUTES)
 
 
 def _round_up(x, q):
@@ -161,7 +244,9 @@ class BatchAligner:
 
     ``bucket_quantum`` sets the padded-shape granularity. ``max_batch``
     caps pairs per launch and ``dirs_budget`` the bytes of one launch's
-    dirs array; ``align_batch`` shrinks its chunks to fit. ``device`` is
+    dirs array; ``align_batch`` shrinks its chunks to fit. ``backend``
+    picks the kernels (see the module docstring: "auto"/"pallas",
+    "pallas_rowscan", "wavefront", or the port's "rowdirs"). ``device`` is
     where the kernels run. ``last_phases`` holds the phase times (ms) of
     the latest ``align_batch``: fill+walk and device-to-host on the
     device's clock, replay and render on the host's.
@@ -179,9 +264,20 @@ class BatchAligner:
     matrix: object = None
     # score_batch gives buckets wider than this to the long fill (K6)
     long_threshold: int = 16384
+    backend: str = "auto"
     device: str = "cuda"
 
     def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend {self.backend!r}: pick from "
+                             f"{BACKENDS}")
+        self._route = _ROUTES[self.backend]
+        if self.matrix is not None and self.backend not in ("auto",
+                                                            "pallas"):
+            raise ValueError(
+                f"a substitution matrix runs on backend 'auto' or "
+                f"'pallas' only, not {self.backend!r}: the matrix "
+                f"wavefront routes are not ported")
         self._dev = torch.device(self.device)
         if self._dev.type not in ("cpu", "cuda"):
             raise ValueError(f"device {self.device!r}: 'cuda' or 'cpu'")
@@ -222,9 +318,11 @@ class BatchAligner:
         for key, idxs in buckets.items():
             # past the whole-row kernel's reach: the long fill, whose
             # strips spread even a one-pair bucket over the card; a
-            # matrix bucket of any width goes to K4s
-            fill = long_fill if max(key) > self.long_threshold \
-                else score_fill
+            # matrix bucket of any width goes to K4s, and the rowscan and
+            # wavefront backends take their own fill at every width
+            fill = self._route.score
+            if self._route.long and max(key) > self.long_threshold:
+                fill = long_fill
             for s in range(0, len(idxs), self.max_batch):
                 chunk = idxs[s: s + self.max_batch]
                 a, b, la, lb = _bucket_arrays(enc_a, enc_b, chunk, key,
@@ -274,8 +372,7 @@ class BatchAligner:
                 if end_types is not None:
                     en[:] = [end_types[k] for k in chunk]
                 pending.append(
-                    (chunk, la, lb, self._dispatch_fused(a, b, la, lb, st,
-                                                         en)))
+                    (chunk, la, lb, self._dispatch(a, b, la, lb, st, en)))
                 while len(pending) > 1:
                     self._emit_chunk(pending.pop(0), enc_a, enc_b, results,
                                      offsets, traceback_mode)
@@ -286,30 +383,34 @@ class BatchAligner:
 
     def chunk_size(self, key, count):
         """Pairs per ``align_batch`` chunk of a bucket of shape ``key``
-        holding ``count`` pairs (uint16 dirs; two chunks at least, so the
-        second one's fill hides the first one's replay and render)."""
-        bm, bn = key
-        return chunk_size(count, 2 * (bm + 1) * (bn + 1), self.max_batch,
+        holding ``count`` pairs, by the route's dirs bytes (uint16 row
+        dirs fused, uint8 row dirs for "rowdirs", uint8 skew dirs for
+        "wavefront"); two chunks at least, so the second one's fill hides
+        the first one's replay and render."""
+        return chunk_size(count, self._route.dirs_bytes(*key), self.max_batch,
                           self.dirs_budget, split_two=True)
 
-    def _dispatch_fused(self, a, b, la, lb, st, en):
+    def _dispatch(self, a, b, la, lb, st, en):
         """Queue fill, end choice, walk and the device-to-host copies of
         one chunk on the current stream; returns the handles without
-        waiting for the device."""
+        waiting for the device. The fused route walks K1's dirs16+runs
+        with K2; "rowdirs" and "wavefront" walk their uint8 dirs with
+        K2s."""
+        route = self._route
         max_steps = int(la.max(initial=0) + lb.max(initial=0)) + 1
         marks = _Marks(self._dev)
         t_a, t_b, t_la, t_lb, t_st, t_en = self._to_dev(a, b, la, lb, st,
                                                         en)
         marks.mark()
-        dirs, fin = rowcb_fill(t_a, t_b, t_la, t_lb, t_st, self.params,
+        dirs, fin = route.fill(t_a, t_b, t_la, t_lb, t_st, self.params,
                                self._table)
         tb, sc = _end_choice(fin, t_en, self.params.h)
-        entries, used = rle_walk(dirs, t_la, t_lb, tb, max_steps)
+        entries, used = route.walk(dirs, t_la, t_lb, tb, max_steps)
         del dirs
         marks.mark()
-        # the capped prefix of the entries ships with the scores; the
-        # whole buffer stays on the device for the rare overflow
-        cap = min(max_steps, max(256, max_steps // 16))
+        # the capped prefix of the rounds ships with the scores; the whole
+        # buffer stays on the device for the rare overflow
+        cap = min(max_steps, max(256, max_steps // route.ship))
         pin = self._dev.type == "cuda"
         host = []
         for x in (entries[:cap], used, tb, sc):
@@ -319,9 +420,11 @@ class BatchAligner:
         marks.mark()
         return entries, host, marks, max_steps
 
-    def _collect_fused(self, handles, la, lb, mode, offsets, chunk):
+    def _collect(self, handles, la, lb, mode, offsets, chunk):
         """Wait for a dispatched chunk, fetch the overflow rounds if the
-        walk ran past the shipped cap, and replay natively."""
+        walk ran past the shipped cap, and replay them by the route:
+        run-length entries natively, K2s op streams with
+        ``replay_steps``."""
         entries_d, (ent_h, used_h, tb_h, sc_h), marks, _ = handles
         marks.wait()
         self.last_phases["fill_walk_ms"] += marks.ms(0)
@@ -330,11 +433,10 @@ class BatchAligner:
         ent = ent_h.numpy()
         if used > ent.shape[0]:
             ent = entries_d[:used].cpu().numpy()
-        ent_b = np.ascontiguousarray(ent[:used].T)
         tables = tb_h.numpy()
         t0 = time.perf_counter()
-        tt, ii, jj, lens = walker.replay_rle(
-            ent_b, la, lb, tables, mode, offsets=offsets, chunk=chunk)
+        tt, ii, jj, lens = self._route.replay(ent, used, la, lb, tables, mode,
+                                              offsets, chunk)
         chains = [LazyChain(tt[r, : lens[r]].copy(), ii[r, : lens[r]].copy(),
                             jj[r, : lens[r]].copy())
                   for r in range(len(chunk))]
@@ -344,7 +446,7 @@ class BatchAligner:
 
     def _emit_chunk(self, item, enc_a, enc_b, results, offsets, mode):
         chunk, la, lb, handles = item
-        chains, arrays, tables, scores = self._collect_fused(
+        chains, arrays, tables, scores = self._collect(
             handles, la, lb, mode, offsets, chunk)
         t0 = time.perf_counter()
         for r, k in enumerate(chunk):

@@ -11,10 +11,17 @@ function (:163-164): cell (i, j) at column ``j - i + band_lo``, clamped
 into the array. The kernel is ``csrc/walk.cu``; a CPU tensor goes to the
 plain PyTorch version.
 
+``step_walk`` (K2s) is the port of the single-step ``_walk_core`` (same
+file, :35) in the layouts "row" and "skew", as ``_device_walk`` (:266)
+runs it: over uint8 dirs, the K1' row layout ``dirs[i, b, j]`` or the K5
+skew layout ``dirs[i + j, b, j]``, one step of ``code + 1`` a dependent
+read; its kernel is ``csrc/walk.cu``. ``walk_batch_device`` (:311) is K2s,
+then ``replay_steps`` (``replay_ops`` of the steps taken), then the chains.
+
 ``expand_rle_ops`` and ``replay_ops`` are numpy copies of the JAX
-package's host replays (same file, :241-263 and :338-439). The main path
-replays with the native library (native/walker.py); these are the test
-references.
+package's host replays (same file, :241-263 and :338-439). The fused
+path replays with the native library (native/walker.py); ``replay_ops``
+replays the K2s op streams of the non-fused routes.
 
 ``local_walk`` (K9w) is the local-mode walk: the port of ``_walk_core``
 (same file, :35) as ``walk_local_batch_device`` (:442) uses it, over the
@@ -135,6 +142,141 @@ def rle_walk(dirs, la, lb, t0, max_rounds, band_lo=None):
 
 rle_walk.launches = 0
 rle_walk.band_launches = 0
+
+
+LAYOUTS = ("row", "skew")
+
+
+def step_walk_plain(dirs, la, lb, t0, max_steps, layout="row"):
+    """Plain PyTorch K2s: (ops (max_steps, B) uint8, used (1,) int32).
+
+    One gather per step for all pairs; ``ops[k, b]`` is 1 + the code of
+    pair b's k-th visited cell for its table then, 0 past its walk. A
+    pair whose start lies outside ``dirs`` or whose table is not 1-3
+    takes no step, as in the kernel."""
+    nrows, B, ncols = dirs.shape
+    dev = dirs.device
+    bidx = torch.arange(B, device=dev)
+    i, j, t = la.to(torch.int64), lb.to(torch.int64), t0.to(torch.int64)
+    r = i + j if layout == "skew" else i
+    bad = (i < 0) | (j < 0) | (j >= ncols) | (r >= nrows) | (t < 1) | (t > 3)
+    done = (i == 0) | (j == 0) | bad
+    ops = torch.zeros((max_steps, B), dtype=torch.uint8, device=dev)
+    k = 0
+    while k < max_steps and not bool(done.all()):
+        # a finished pair's read is discarded; cell (0, 0) keeps it inside
+        r = torch.where(done, 0, i + j if layout == "skew" else i)
+        byte = dirs[r, bidx, torch.where(done, 0, j)].to(torch.int64)
+        code = (byte >> (2 * (torch.where(done, 1, t) - 1))) & 3
+        active = ~done
+        ops[k] = torch.where(active, code + 1, 0).to(torch.uint8)
+        i = torch.where(active, i - ((t == 1) | (t == 3)).to(torch.int64), i)
+        j = torch.where(active, j - ((t == 1) | (t == 2)).to(torch.int64), j)
+        t = torch.where(active, torch.where(code >= 3, 1, code + 1), t)
+        done = done | (i == 0) | (j == 0)
+        k += 1
+    used = torch.tensor([k], dtype=torch.int32, device=dev)
+    return ops, used
+
+
+@functools.lru_cache(maxsize=None)
+def _step_entry():
+    """ctypes entry point of csrc/walk.cu's single-step walk."""
+    fn = _build.cuda_library("walk").step_walk
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    return fn
+
+
+def step_walk(dirs, la, lb, t0, max_steps, layout="row"):
+    """K2s: single-step walk of every pair from (la, lb) in table t0 over
+    uint8 dirs ``(rows, B, cols)`` in the ``layout`` "row" (K1') or
+    "skew" (K5).
+
+    Returns (ops (max_steps, B) uint8, zero past each pair's walk, and
+    used (1,) int32, the longest walk), both on the dirs' device; nothing
+    is synchronised. A pair stops on row 0 or column 0 and one that starts
+    there writes nothing. A pair whose start cell lies outside ``dirs``
+    or whose table is not 1-3 writes nothing either (checking it here
+    would wait for the fill that made t0): ``replay_steps`` refuses its
+    empty walk. Row-layout launches count in ``step_walk.launches``,
+    skew-layout ones in ``step_walk.skew_launches``."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r}: pick from {LAYOUTS}")
+    if dirs.dtype != torch.uint8 or dirs.dim() != 3:
+        raise TypeError("dirs must be a (rows, B, cols) uint8 tensor")
+    B = dirs.shape[1]
+    for name, v in (("la", la), ("lb", lb), ("t0", t0)):
+        if v.dtype != torch.int32 or tuple(v.shape) != (B,):
+            raise ValueError(f"{name} must be ({B},) int32, got "
+                             f"{tuple(v.shape)} {v.dtype}")
+    for v in (dirs, la, lb, t0):
+        if v.device != dirs.device:
+            raise ValueError("all inputs must be on one device")
+        if not v.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+    if max_steps < 1:
+        raise ValueError("max_steps must be >= 1")
+    if dirs.device.type == "cpu":
+        return step_walk_plain(dirs, la, lb, t0, max_steps, layout)
+    if dirs.device.type != "cuda":
+        raise ValueError(f"unsupported device {dirs.device}")
+    dev = dirs.device
+    ops = torch.zeros((max_steps, B), dtype=torch.uint8, device=dev)
+    used = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _step_entry()(dirs.data_ptr(), la.data_ptr(), lb.data_ptr(),
+                            t0.data_ptr(), ops.data_ptr(), used.data_ptr(),
+                            B, dirs.shape[0], dirs.shape[2], max_steps,
+                            int(layout == "skew"),
+                            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, f"step_walk({layout})")
+    if layout == "skew":
+        step_walk.skew_launches += 1
+    else:
+        step_walk.launches += 1
+    return ops, used
+
+
+step_walk.launches = 0
+step_walk.skew_launches = 0
+
+
+def walk_batch_device(dirs, la, lb, tables, mode="parity", offsets=None,
+                      chunk=None, layout="skew"):
+    """Global-mode chains of every pair: K2s on the dirs' device over the
+    uint8 ``dirs`` in ``layout``, then ``replay_steps`` on the host, as
+    the aligner's "rowdirs" and "wavefront" routes run them.
+
+    ``la``, ``lb`` and ``tables`` are (B,) end coordinates and end tables;
+    ``mode`` "parity" (quirk B1) or "full"; ``offsets`` per-pair (id_a,
+    id_b), indexed by ``chunk``. Returns a list of chains (lists of
+    (i, j, t), quirk-B2 zeros)."""
+    la, lb, tables = (np.ascontiguousarray(x, np.int32)
+                      for x in (la, lb, tables))
+    max_steps = int(la.max(initial=0)) + int(lb.max(initial=0)) + 1
+    dev = dirs.device
+    ops, used = step_walk(dirs, *(torch.from_numpy(x).to(dev)
+                                  for x in (la, lb, tables)), max_steps,
+                          layout)
+    tt, ii, jj, lens = replay_steps(ops.cpu().numpy(), int(used[0]), la, lb,
+                                    tables, mode, offsets, chunk)
+    return [list(zip(ii[r, : lens[r]].tolist(), jj[r, : lens[r]].tolist(),
+                     tt[r, : lens[r]].tolist()))
+            for r in range(len(la))]
+
+
+def replay_steps(ops, used, la, lb, tables, mode="parity", offsets=None,
+                 chunk=None):
+    """Host half of the K2s routes: ``replay_ops`` of the first ``used``
+    steps of a host copy of ``step_walk``'s ops (max_steps, B). Returns
+    (tt, ii, jj, lens) as ``replay_ops`` does; a pair whose walk never
+    reached row 0 or column 0 raises."""
+    return replay_ops(np.ascontiguousarray(ops[:used].T),
+                      np.asarray(la, np.int64), np.asarray(lb, np.int64),
+                      np.asarray(tables, np.int64), mode=mode,
+                      offsets=offsets, chunk=chunk)
 
 
 def local_walk_plain(dirs, ei, ej, max_steps):
@@ -293,7 +435,8 @@ def replay_ops(ops, la, lb, tables, mode="parity", offsets=None,
         bad = np.nonzero(~reached)[0]
         raise RuntimeError(
             f"walk never reached a DP edge for pairs {bad[:8].tolist()} "
-            f"(corrupt dirs or undersized max_steps {L})")
+            f"(a start outside the dirs, corrupt dirs or undersized "
+            f"max_steps {L})")
     steps = np.argmax(edge, axis=1)
     pts_i = np.where(T == 2, 0, pos_i + id_a)
     pts_j = np.where(T == 3, 0, pos_j + id_b)

@@ -1,4 +1,5 @@
-"""Anti-diagonal score fills: K3 (global), K10s (semi-global), K11s (overlap).
+"""Anti-diagonal fills: K3 (global), K10s (semi-global), K11s (overlap)
+score fills, and K5 (global skew dirs).
 
 One sweep over the anti-diagonals d = 1..m+n of every pair of a bucket
 (``csrc/diag.cu``, one CUDA template with a mode parameter), in the
@@ -35,6 +36,15 @@ Inputs are a bucket: ``a`` (B, m) and ``b`` (B, n) uint8 codes padded
 with ``PAD_A``/``PAD_B``, lengths ``la``/``lb`` and, in global mode, the
 start types ``st``, each (B,) int32. A CPU tensor goes to the plain
 PyTorch version; a CUDA tensor launches the kernel or raises.
+
+K5 ``skew_dirs_fill`` (the port of ``_dirs_kernel``, ops/pallas_fill.py
+:310, with per-pair start types) is the global sweep storing one uint8
+direction code a cell in the skew layout ``dirs[i + j, b, j]``: d1 the
+argmax of the (i-1, j-1) triple, d2 of ``T1 - gh, T2 - g, T3 - gh`` at
+(i, j-1), d3 of ``T1 - gh, T2 - gh, T3 - g`` at (i-1, j), tie order T1 >=
+T2 >= T3, 0 outside the interior (row 0, column 0, rows past the
+bucket's m), as ``_diag_step`` writes them. Its values are K3's: the max
+of candidates rounded one by one equals the rounded max.
 """
 
 from __future__ import annotations
@@ -63,9 +73,17 @@ def _first_min(key, mask):
     return torch.where(mask, key, _BIG).min(dim=1).values
 
 
-def diag_fill_plain(a, b, la, lb, st, params, mode):
+def _argmax3(c1, c2, c3):
+    """First index of the max of three (tie order T1 >= T2 >= T3)."""
+    return torch.where((c1 >= c2) & (c1 >= c3), 0,
+                       torch.where(c2 >= c3, 1, 2))
+
+
+def diag_fill_plain(a, b, la, lb, st, params, mode, want_dirs=False):
     """Plain PyTorch K3/K10s/K11s: an anti-diagonal loop over (B, n+1)
-    tensors in the kernel's float32 order (see the module docstring)."""
+    tensors in the kernel's float32 order (see the module docstring).
+    With ``want_dirs`` (global mode, K5) returns (skew dirs (m+n+1, B,
+    n+1) uint8, finals)."""
     code = _build.MODES[mode]
     B, m = a.shape
     n = b.shape[1]
@@ -101,6 +119,9 @@ def diag_fill_plain(a, b, la, lb, st, params, mode):
     else:
         p = (torch.where(at0, zero, neg).expand(B, -1), negs, negs)
     q = (negs, negs, negs)
+    if want_dirs:
+        dirs = torch.zeros((m + n + 1, B, n + 1), dtype=torch.uint8,
+                           device=dev)
     if code == 1:  # the last query row, captured as each cell passes
         rv = [negs] * 3
     if code == 2:  # best (value, diagonal, table, column)
@@ -118,9 +139,21 @@ def diag_fill_plain(a, b, la, lb, st, params, mode):
         fvec = torch.where(av == bext, match, mismatch)
         p1, p2, p3 = p
         q1, q2, q3 = q
-        t1 = fvec + _shift(torch.maximum(torch.maximum(q1, q2), q3))
-        t2 = _shift(torch.maximum(torch.maximum(p1, p3) - gh, p2 - g))
-        t3 = torch.maximum(torch.maximum(p1, p2) - gh, p3 - g)
+        if want_dirs:
+            # K5 compares the rounded candidates, as _diag_step does
+            s1, s2, s3 = _shift(q1), _shift(q2), _shift(q3)
+            c2 = (_shift(p1) - gh, _shift(p2) - g, _shift(p3) - gh)
+            c3 = (p1 - gh, p2 - gh, p3 - g)
+            t1 = fvec + torch.maximum(torch.maximum(s1, s2), s3)
+            t2 = torch.maximum(torch.maximum(c2[0], c2[1]), c2[2])
+            t3 = torch.maximum(torch.maximum(c3[0], c3[1]), c3[2])
+            dirs[d] = torch.where(interior, _argmax3(s1, s2, s3)
+                                  | (_argmax3(*c2) << 2)
+                                  | (_argmax3(*c3) << 4), 0).to(torch.uint8)
+        else:
+            t1 = fvec + _shift(torch.maximum(torch.maximum(q1, q2), q3))
+            t2 = _shift(torch.maximum(torch.maximum(p1, p3) - gh, p2 - g))
+            t3 = torch.maximum(torch.maximum(p1, p2) - gh, p3 - g)
         t1 = torch.where(interior, t1, neg)
         t2 = torch.where(interior, t2, neg)
         t3 = torch.where(interior, t3, neg)
@@ -166,7 +199,7 @@ def diag_fill_plain(a, b, la, lb, st, params, mode):
             bj = torch.where(better, cj, bj)
         p, q = (t1, t2, t3), p
     if code == 0:
-        return fin
+        return (dirs, fin) if want_dirs else fin
     if code == 1:
         # value desc, then column asc, then table T1 > T2 > T3
         cv = torch.maximum(torch.maximum(rv[0].max(dim=1).values,
@@ -186,6 +219,11 @@ def score_fill_plain(a, b, la, lb, st, params):
     return diag_fill_plain(a, b, la, lb, st, params, "global")
 
 
+def skew_dirs_fill_plain(a, b, la, lb, st, params):
+    """Plain PyTorch K5: (skew dirs (m+n+1, B, n+1) uint8, finals (B, 3))."""
+    return diag_fill_plain(a, b, la, lb, st, params, "global", want_dirs=True)
+
+
 def _launch_geometry(n):
     """(threads, diagonal buffer bytes) for a bucket of width n: whole
     warps, each thread at most ceil((n+1) / 1024) columns."""
@@ -196,18 +234,25 @@ def _launch_geometry(n):
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    """ctypes entry point of csrc/diag.cu: 7 pointers, then mode, B, m,
-    n, threads, shared bytes, g, h, match, mismatch, stream."""
-    fn = _build.cuda_library("diag").diag_fill
+def _entry(name="diag_fill"):
+    """ctypes entry point of csrc/diag.cu: ``diag_fill`` (7 pointers,
+    then mode, B, m, n, threads, shared bytes, g, h, match, mismatch,
+    stream) or ``skew_dirs`` (8 pointers, the dirs after out, then the
+    same without the mode)."""
+    fn = getattr(_build.cuda_library("diag"), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] + [ctypes.c_float] * 4
-                   + [ctypes.c_void_p])
+    if name == "diag_fill":
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] + [ctypes.c_float] * 4
+                       + [ctypes.c_void_p])
+    else:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] + [ctypes.c_float] * 4
+                       + [ctypes.c_void_p])
     return fn
 
 
-def _launch(a, b, la, lb, st, params, mode):
+def _launch(a, b, la, lb, st, params, mode, want_dirs=False):
     B, m = a.shape
     n = b.shape[1]
     dev = a.device
@@ -221,13 +266,22 @@ def _launch(a, b, la, lb, st, params, mode):
     out = torch.empty((B, 3 if mode == "global" else 4),
                       dtype=torch.float32, device=dev)
     g, h, match, mismatch = params.astuple()
+    scr = scratch.data_ptr() if scratch is not None else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
+        if want_dirs:  # K5 writes the cells with 0 <= i <= m alone
+            dirs = torch.zeros((m + n + 1, B, n + 1), dtype=torch.uint8,
+                               device=dev)
+            err = _entry("skew_dirs")(
+                a.data_ptr(), b.data_ptr(), la.data_ptr(), lb.data_ptr(),
+                st.data_ptr(), out.data_ptr(), dirs.data_ptr(), scr, B, m,
+                n, threads, smem, g, h, match, mismatch, stream)
+            _build.check(err, "skew_dirs")
+            return dirs, out
         err = _entry()(
             a.data_ptr(), b.data_ptr(), la.data_ptr(), lb.data_ptr(),
-            st.data_ptr(), out.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
-            _build.MODES[mode], B, m, n, threads, smem, g, h, match, mismatch,
-            torch.cuda.current_stream(dev).cuda_stream)
+            st.data_ptr(), out.data_ptr(), scr, _build.MODES[mode], B, m,
+            n, threads, smem, g, h, match, mismatch, stream)
     _build.check(err, f"diag_fill({mode})")
     return out
 
@@ -265,6 +319,21 @@ def overlap_score(a, b, la, lb, params):
     return out
 
 
+def skew_dirs_fill(a, b, la, lb, st, params):
+    """K5: global anti-diagonal fill of a bucket storing one uint8 code
+    ``d1 | d2 << 2 | d3 << 4`` a cell in the skew layout, cell (i, j) of
+    pair b at ``dirs[i + j, b, j]``, 0 on row 0, column 0 and past row m;
+    returns (dirs (m+n+1, B, n+1) uint8, finals (B, 3)), the finals K3's
+    bit for bit."""
+    _build.check_bucket(a, b, la, lb, st)
+    if a.device.type == "cpu":
+        return skew_dirs_fill_plain(a, b, la, lb, st, params)
+    out = _launch(a, b, la, lb, st, params, "global", want_dirs=True)
+    skew_dirs_fill.launches += 1
+    return out
+
+
 score_fill.launches = 0
+skew_dirs_fill.launches = 0
 semiglobal_score.launches = 0
 overlap_score.launches = 0

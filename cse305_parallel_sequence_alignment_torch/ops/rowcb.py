@@ -1,6 +1,6 @@
 """Gotoh row-sweep fills: K1 (global), K4d and K4s (global under a
-substitution matrix), K10d (semi-global), K11d (overlap), and the
-re-export of K3.
+substitution matrix), K3' (global score), K1' (global uint8 dirs), K10d
+(semi-global), K11d (overlap), and the re-export of K3.
 
 K1 ``rowcb_fill`` is the port of the TPU kernel ``_rowcb_kernel``
 (cse305_parallel_sequence_alignment_tpu/ops/pallas_rowcb.py:126) with
@@ -12,8 +12,8 @@ both with ``with_runs=True, perm=False``. K4d is ``rowcb_fill`` given a
 f(A[i], B[j]) = table[A[i], B[j]]), and K4s ``submat_score_fill`` the
 score-only ``_submat_kernel`` (ops/pallas_fill.py:1110) with the same
 arithmetic, so its finals equal K4d's. All of them run one row sweep
-(``csrc/rowcb.cu``, one CUDA template with a mode parameter and two
-flags, table and dirs):
+(``csrc/rowcb.cu``, one CUDA template with a mode parameter and three
+flags: a table, what it stores a cell, and the omega order):
 
 - ``T1 = f(A[i], B[j]) + max3(prev row, j-1)``
 - ``T3 = max(max(T1,T2)(prev, j) - gh, T3(prev, j) - g)``
@@ -44,6 +44,15 @@ Every cell of the bucket is computed, padding included. ``dirs`` is
 packing [d1 | d2 << 2 | d3 << 4 | after-run code << 6 | run length << 8]
 (the JAX ``with_runs`` encoding) in every mode.
 
+K3' ``rowscan_score_fill`` is the port of ``_rowscan_kernel``
+(ops/pallas_fill.py:750): K1's sweep storing nothing, per-pair start
+types, finals equal to K1's bit for bit. K1' ``rowdirs_fill`` is the port
+of ``_rowdirs_kernel`` (ops/pallas_fill.py:508): the global sweep with
+omega in the free modes' order (``jgc = g*j - g - h`` first, as that
+kernel computes it), storing the uint8 codes ``d1 | d2 << 2 | d3 << 4``
+in a (m+1, B, n+1) tensor, or with ``with_runs`` the uint16 dirs16+runs
+word; at non-dyadic g, h its cells are not K1's.
+
 K3 ``score_fill`` (global finals only) is the anti-diagonal kernel of
 ``ops/diag.py``, re-exported here under its old name.
 
@@ -68,6 +77,7 @@ from cse305_parallel_sequence_alignment_torch.core import (
 )
 from cse305_parallel_sequence_alignment_torch.ops import _build
 from cse305_parallel_sequence_alignment_torch.ops.diag import (  # noqa: F401
+    _argmax3,
     score_fill,
     score_fill_plain,
 )
@@ -78,12 +88,6 @@ _BIG = 1 << 30  # above any column or anti-diagonal index
 SMEM_LIMIT = 200 * 1024
 
 
-def _argmax3(c1, c2, c3):
-    """First index of the max of three (tie order T1 >= T2 >= T3)."""
-    return torch.where((c1 >= c2) & (c1 >= c3), 0,
-                       torch.where(c2 >= c3, 1, 2))
-
-
 def _shift(x, fill):
     """Shift columns right by one (column j gets j-1), ``fill`` at 0."""
     col = torch.full_like(x[:, :1], fill)
@@ -91,14 +95,16 @@ def _shift(x, fill):
 
 
 def _sweep_plain(a, b, la, lb, st, params, want_dirs, want_row=False,
-                 mode="global", table=None):
+                 mode="global", table=None, runs=True, free=False):
     """Row loop over (B, n+1) tensors in the kernel's float32 order.
 
     Returns (dirs or None, out). In global mode ``out`` is the finals
     (B, 3) at (la, lb), or with ``want_row`` the whole row la of each
     pair, (B, 3, n+1); in semi-global and overlap mode it is the best
     (B, 4) [score, end_table, end_i, end_j] (see the module docstring).
-    With a ``table`` (global mode) f(A[i], B[j]) is read from it."""
+    With a ``table`` (global mode) f(A[i], B[j]) is read from it. Without
+    ``runs`` the dirs are the uint8 codes alone; ``free`` takes omega in
+    the free modes' order in global mode too (K1')."""
     code = _build.MODES[mode]
     B, m = a.shape
     n = b.shape[1]
@@ -151,7 +157,8 @@ def _sweep_plain(a, b, la, lb, st, params, want_dirs, want_row=False,
     dirs = None
     if want_dirs:
         # int16 holds the uint16 bits: few PyTorch kernels take uint16
-        dirs = torch.empty((m + 1, B, n + 1), dtype=torch.int16,
+        dirs = torch.empty((m + 1, B, n + 1),
+                           dtype=torch.int16 if runs else torch.uint8,
                            device=dev)
         dirs[0] = 0
         word = torch.zeros((B, n + 1), dtype=torch.int32, device=dev)
@@ -175,7 +182,7 @@ def _sweep_plain(a, b, la, lb, st, params, want_dirs, want_row=False,
                          fb + _shift(mp3, NEG_INF))
         t3 = torch.where(lane0, col0_3, torch.maximum(mp12 - gh, p3 - g))
         m13s = _shift(torch.maximum(t1, t3), NEG_INF)
-        if code == 0:
+        if code == 0 and not free:
             omega = (jg + m13s) - gh
         else:
             omega = jgc + m13s
@@ -185,6 +192,11 @@ def _sweep_plain(a, b, la, lb, st, params, want_dirs, want_row=False,
             d1 = _shift(_argmax3(p1, p2, p3), 0)
             d3 = _argmax3(p1, p2, p3 + h)
             d2 = _shift(_argmax3(t1 - h, t2, t3 - h), 0)
+            codes = ((d1 << DIR_T1_SHIFT) | (d2 << DIR_T2_SHIFT)
+                     | (d3 << DIR_T3_SHIFT))
+        if want_dirs and not runs:
+            dirs[i] = codes.to(torch.uint8)
+        elif want_dirs:
             r_prev = _shift(word >> 8, 0)
             ca_prev = _shift((word >> 6) & 3, 0)
             is_run = d1 == 0
@@ -192,8 +204,7 @@ def _sweep_plain(a, b, la, lb, st, params, want_dirs, want_row=False,
                                 torch.clamp(r_prev + 1, max=RUN_CAP), 0)
             ca_cur = torch.where(
                 is_run, torch.where(r_prev >= RUN_CAP, 0, ca_prev), d1)
-            word = ((d1 << DIR_T1_SHIFT) | (d2 << DIR_T2_SHIFT)
-                    | (d3 << DIR_T3_SHIFT) | (ca_cur << 6) | (r_cur << 8))
+            word = codes | (ca_cur << 6) | (r_cur << 8)
             dirs[i] = word.to(torch.int16)
         fin = capture(fin, i, t1, t2, t3)
         if code == 2:
@@ -203,7 +214,8 @@ def _sweep_plain(a, b, la, lb, st, params, want_dirs, want_row=False,
             colv = torch.where(better, val, colv)
             coli = torch.where(better, i, coli)
         p1, p2, p3 = t1, t2, t3
-    dirs = dirs.view(torch.uint16) if want_dirs else None
+    if want_dirs and runs:
+        dirs = dirs.view(torch.uint16)
     if code == 0:
         return dirs, fin
     # the best over row la, columns 1..lb: value desc, column asc, table
@@ -259,6 +271,19 @@ def submat_score_fill_plain(a, b, la, lb, st, table, params):
                         table=table)[1]
 
 
+def rowscan_score_fill_plain(a, b, la, lb, st, params):
+    """Plain PyTorch K3': finals (B, 3), K1's sweep without dirs."""
+    return _sweep_plain(a, b, la, lb, st, params, want_dirs=False)[1]
+
+
+def rowdirs_fill_plain(a, b, la, lb, st, params, with_runs=False):
+    """Plain PyTorch K1': (dirs (m+1, B, n+1) uint8 codes, or uint16
+    dirs16+runs ``with_runs``, finals (B, 3)), omega in the free modes'
+    order."""
+    return _sweep_plain(a, b, la, lb, st, params, want_dirs=True,
+                        runs=with_runs, free=True)
+
+
 def semiglobal_dirs_plain(a, b, la, lb, params):
     """Plain PyTorch K10d: (dirs (m+1, B, n+1) uint16, best (B, 4))."""
     return _sweep_plain(a, b, la, lb, torch.zeros_like(la), params,
@@ -271,37 +296,43 @@ def overlap_dirs_plain(a, b, la, lb, params):
                         want_dirs=True, mode="overlap")
 
 
-def _launch_geometry(n, want_dirs=True, k1=0):
+def _launch_geometry(n, runs=True, k1=0):
     """(C, threads, row_bytes, base_smem) for a bucket of width n, with
-    or without dirs, under a (k1, k1) table or none (k1 = 0)."""
+    or without the run state, under a (k1, k1) table or none (k1 = 0)."""
     ncol = n + 1
     C = max(4, -(-ncol // 1024))
     threads = -(-ncol // (32 * C)) * 32  # whole warps covering ncol
-    row_bytes = (ncol * (28 if want_dirs else 24) + 15) // 16 * 16
+    row_bytes = (ncol * (28 if runs else 24) + 15) // 16 * 16
     base_smem = 512 + (ncol + 15) // 16 * 16 + (k1 * k1 * 4 + 15) // 16 * 16
     return C, threads, row_bytes, base_smem
+
+
+# what a sweep stores for each cell (csrc/rowcb.cu): nothing, the uint16
+# dirs16+runs word, or the uint8 codes alone
+NO_DIRS, DIRS16, DIRS8 = 0, 1, 2
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     """ctypes entry point of csrc/rowcb.cu: 8 pointers, then mode, B, m,
     n, C, threads, shared bytes, g, h, match, mismatch, the table
-    pointer, k1, want_dirs, stream."""
+    pointer, k1, dirs_kind, free_order, stream."""
     fn = _build.cuda_library("rowcb").rowcb_fill
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] + [ctypes.c_float] * 4
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     return fn
 
 
-def _launch(a, b, la, lb, st, params, mode, table=None, want_dirs=True):
+def _launch(a, b, la, lb, st, params, mode, table=None, kind=DIRS16,
+            free=False):
     B, m = a.shape
     n = b.shape[1]
     dev = a.device
     k1 = 0 if table is None else table.shape[0]
-    C, threads, row_bytes, smem = _launch_geometry(n, want_dirs, k1)
+    C, threads, row_bytes, smem = _launch_geometry(n, kind == DIRS16, k1)
     scratch = None
     if smem + row_bytes <= SMEM_LIMIT:
         smem += row_bytes
@@ -309,19 +340,22 @@ def _launch(a, b, la, lb, st, params, mode, table=None, want_dirs=True):
         scratch = torch.empty(B * row_bytes, dtype=torch.uint8, device=dev)
     out = torch.full((B, 3 if mode == "global" else 4), NEG_INF,
                      dtype=torch.float32, device=dev)
-    dirs = (torch.empty((m + 1, B, n + 1), dtype=torch.uint16, device=dev)
-            if want_dirs else None)
+    dirs = None
+    if kind != NO_DIRS:
+        dirs = torch.empty((m + 1, B, n + 1), device=dev, dtype=(
+            torch.uint16 if kind == DIRS16 else torch.uint8))
     g, h, match, mismatch = params.astuple()
     with torch.cuda.device(dev):
         err = _entry()(
             a.data_ptr(), b.data_ptr(), la.data_ptr(), lb.data_ptr(),
-            st.data_ptr(), dirs.data_ptr() if want_dirs else None,
+            st.data_ptr(), dirs.data_ptr() if dirs is not None else None,
             out.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
             _build.MODES[mode], B, m, n, C, threads, smem, g, h, match,
             mismatch, table.data_ptr() if table is not None else None, k1,
-            int(want_dirs), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, f"rowcb_fill({mode}{', table' if k1 else ''})")
+            kind, int(free), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, f"rowcb_fill({mode}{', table' if k1 else ''}, dirs "
+                      f"kind {kind}{', free order' if free else ''})")
     return dirs, out
 
 
@@ -375,8 +409,37 @@ def submat_score_fill(a, b, la, lb, st, table, params):
     if a.device.type == "cpu":
         return submat_score_fill_plain(a, b, la, lb, st, table, params)
     out = _launch(a, b, la, lb, st, params, "global", table,
-                  want_dirs=False)[1]
+                  kind=NO_DIRS)[1]
     submat_score_fill.launches += 1
+    return out
+
+
+def rowscan_score_fill(a, b, la, lb, st, params):
+    """K3': finals (B, 3) of a bucket, the global row sweep storing no
+    dirs; bit for bit K1's finals (omega in K1's order)."""
+    _build.check_bucket(a, b, la, lb, st)
+    if a.device.type == "cpu":
+        return rowscan_score_fill_plain(a, b, la, lb, st, params)
+    out = _launch(a, b, la, lb, st, params, "global", kind=NO_DIRS)[1]
+    rowscan_score_fill.launches += 1
+    return out
+
+
+def rowdirs_fill(a, b, la, lb, st, params, with_runs=False):
+    """K1': row-layout dirs fill of a bucket with omega in the free
+    modes' order; returns (dirs (m+1, B, n+1), finals (B, 3)). The dirs
+    are uint8 codes ``d1 | d2 << 2 | d3 << 4``, or with ``with_runs`` the
+    uint16 dirs16+runs word (counted in ``rowdirs_fill.runs_launches``).
+    Row 0 is zero."""
+    _build.check_bucket(a, b, la, lb, st)
+    if a.device.type == "cpu":
+        return rowdirs_fill_plain(a, b, la, lb, st, params, with_runs)
+    out = _launch(a, b, la, lb, st, params, "global",
+                  kind=DIRS16 if with_runs else DIRS8, free=True)
+    if with_runs:
+        rowdirs_fill.runs_launches += 1
+    else:
+        rowdirs_fill.launches += 1
     return out
 
 
@@ -408,6 +471,9 @@ def overlap_dirs(a, b, la, lb, params):
 rowcb_fill.launches = 0
 rowcb_fill.table_launches = 0  # K4d
 submat_score_fill.launches = 0
+rowscan_score_fill.launches = 0
+rowdirs_fill.launches = 0
+rowdirs_fill.runs_launches = 0  # the with_runs form
 semiglobal_dirs.launches = 0
 overlap_dirs.launches = 0
 

@@ -12,9 +12,10 @@ style, so every point lies on one optimal path):
   4. recurse into the two sub-rectangles until p segments exist.
 
 The segments are then solved as one mixed-type ``align_batch`` of the
-port's ``BatchAligner`` (K1 fill, K2 walk) in ``traceback_mode="full"``
-and their chains stitched. The last rows come from K6 (``ops/longrow.py``)
-or, for the few wide jobs of the top levels, K7 (``ops/longstair.py``).
+port's ``BatchAligner`` (K1 fill and K2 walk, or the route of its
+``backend``) in ``traceback_mode="full"`` and their chains stitched. The
+last rows come from K6 (``ops/longrow.py``) or, for the few wide jobs of
+the top levels, K7 (``ops/longstair.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from cse305_parallel_sequence_alignment_torch.core import (
     format_alignment,
 )
 from cse305_parallel_sequence_alignment_torch.models.batch import (
+    BACKENDS,
     BatchAligner,
 )
 from cse305_parallel_sequence_alignment_torch.ops.longrow import (
@@ -138,6 +140,8 @@ class PartitionedAligner:
     the level-batched ``batched_crossings``; "rowscan" runs the serial
     ``crossing_on_row`` through the K6 last row (the same points);
     "sharded" (the multi-device pipeline, kernel K8) is not ported yet.
+    ``backend`` is the segment solves' ``BatchAligner`` backend (its
+    values and routes; the crossing search does not depend on it).
     ``last_phases`` holds the host-clock seconds of the latest ``align``:
     the crossing search, the segment solves and the stitch (each ends
     with its results on the host).
@@ -151,9 +155,13 @@ class PartitionedAligner:
     # per-segment direction-matrix budget (bytes) used when p == 0
     mem_budget: int = 1 << 30
     fill_backend: str = "auto"
+    backend: str = "auto"
     device: str = "cuda"
 
     def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend {self.backend!r}: pick from "
+                             f"{BACKENDS}")
         if self.fill_backend not in FILL_BACKENDS:
             raise ValueError(f"fill_backend {self.fill_backend!r}: pick "
                              f"from {FILL_BACKENDS}")
@@ -212,7 +220,7 @@ class PartitionedAligner:
             segments.append((i0, j0, a_enc[i0:i1], b_enc[j0:j1], st, en))
         aligner = BatchAligner(params=self.params, parity_swap=False,
                                bucket_quantum=self.bucket_quantum,
-                               device=self.device)
+                               backend=self.backend, device=self.device)
         results = aligner.align_batch(
             [(s[2], s[3]) for s in segments],
             offsets=[(s[0], s[1]) for s in segments],

@@ -25,6 +25,8 @@ from cse305_parallel_sequence_alignment_torch.models import (
     LocalBatchAligner, OverlapBatchAligner, OverlapResult,
     SemiGlobalBatchAligner, SemiGlobalResult)
 from cse305_parallel_sequence_alignment_torch.models import local_oracle
+from cse305_parallel_sequence_alignment_torch.harness import perfreport
+from cse305_parallel_sequence_alignment_torch.utils import observability
 from cse305_parallel_sequence_alignment_torch.ops import (
     _build, banded, cigar, device_walk, diag, local, longrow, longstair,
     rowcb, traceback)
@@ -119,6 +121,11 @@ def _longscore_devices():
           "--device", "cpu"])
 
 
+def _perf_longseq():
+    from cse305_parallel_sequence_alignment_torch.__main__ import main
+    main(["perf", "--lengths", "128", "--batches", "2", "--device", "cpu"])
+
+
 def _sharded_fill():
     from cse305_parallel_sequence_alignment_torch.parallel.partition import (
         PartitionedAligner,
@@ -127,8 +134,10 @@ def _sharded_fill():
 
 
 @pytest.mark.parametrize("make,item", [(_longscore_devices, "item 13"),
-                                       (_sharded_fill, "item 13")],
-                         ids=["longscore-devices", "sharded"])
+                                       (_sharded_fill, "item 13"),
+                                       (_perf_longseq, "item 13")],
+                         ids=["longscore-devices", "sharded",
+                              "perf-longseq"])
 def test_unported_options_name_their_roadmap_item(make, item):
     with pytest.raises(NotImplementedError, match=item):
         make()
