@@ -5,11 +5,12 @@
 
 Builds the port's kernels from ``cse305_parallel_sequence_alignment_torch/
 csrc`` (one compiler process per source, all at once) and drives its
-eight main paths, global full alignment of many pairs (match/mismatch
-and under a substitution matrix), the balanced partition of one long
-pair, the ``BatchAligner`` backends, banded global alignment of the long
-pair, local (Smith-Waterman), semi-global and overlap alignment of many
-pairs:
+main paths, global full alignment of many pairs (match/mismatch and
+under a substitution matrix), the balanced partition of one long pair,
+the column-sharded long-pair pipeline, the ``BatchAligner`` backends,
+banded global alignment of the long pair, local (Smith-Waterman),
+semi-global and overlap alignment of many pairs, and the data-sharded
+aligners:
 
 1. card, torch and CUDA versions; the kernels' build time;
 2. each kernel against its plain PyTorch version on the card, bit for
@@ -50,6 +51,18 @@ pairs:
    step 5 gave them (each bisection level's largest K7 job, or its whole
    K6 bucket), which set their times in the kernels line; each K7 level
    also timed as one K6 launch over its jobs;
+6e. the long-pair pipeline, counters set to 0 again: ``longseq_score``
+    of step 5's 97 kb pair on a mesh of the card and on a mesh of four
+    entries of it (R = 256), ``longseq_lastrow`` of the 13 kb x 97 kb
+    pair, and that pair through ``PartitionedAligner(p=4,
+    fill_backend="sharded")``; gates: the finals = the whole pair's K6
+    finals, the row = K6's last row, the partition = step 5's, every fill
+    through the kernel route (``[longseq]``); then K8 against its plain
+    version, bit for bit, on the first, a middle and the row-la call of
+    each entry of the four-entry run (recorded from a second run, which
+    must give the same finals), each timed, and on every call of a 3 k x
+    12 k pair at g=0.3, h=1.7 and of a 300 x 5,000 pair for each start
+    type (``[longseq-kernels]``);
 6a. K3' row-sweep score fill, K1' row uint8 dirs fill, K5 skew dirs fill
     and K2s single-step walk (row and skew layouts) against their plain
     versions, bit for bit: 8 ragged pairs up to 2 kb with every start
@@ -90,6 +103,11 @@ pairs:
    ``score_batch`` = ``align_batch``, chains re-scoring to their scores,
    CIGARs consuming their spans, and the first 64 pairs equal to the
    plain versions' results on the card;
+8a. the data-sharded aligners, counters set to 0 again:
+    ``ShardedBatchAligner`` ``align_batch`` and ``score_batch`` on step
+    4's 256 x 2 kb pairs over a mesh of the card and of two entries of
+    it, ``ShardedLocalBatchAligner`` scores of step 8's pairs over two
+    entries; each equal to the unsharded aligner's (``[sharded]``);
 9. K10s/K10d semi-global and K11s/K11d overlap fills against their plain
    versions, bit for bit, at the default and a non-dyadic parameter set,
    on ragged pairs with an empty side, m > n and 1,100 columns; then
@@ -109,10 +127,14 @@ pairs:
     B, half are unrelated); gates as step 10, with every end on the last
     row or the last column;
 12. the CLI ``align``, ``partition``, ``local``, ``semiglobal`` and
-    ``overlap`` in subprocesses, and ``perf --no-longseq`` at its defaults
-    (every row parses and has no error; printed on ``[perf]`` lines);
-13. every kernel of each path launched in step 4, 4b, 5, 6b, 6d, 8, 10
-    or 11.
+    ``overlap`` in subprocesses; ``longscore --devices 1`` (K6) on the
+    97 kb pair, whose score must be the one step 6e's finals give, and
+    ``longscore`` with one more device than the host has cards, which
+    must fail naming their count; and ``perf`` at its defaults, its
+    longseq rows included (every row parses and has no error; printed on
+    ``[perf]`` lines);
+13. every kernel of each path launched in step 4, 4b, 5, 6b, 6d, 6e, 8,
+    8a, 10 or 11.
 
 Prints a JSON line of the kernels (times, bounds, launches), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Any
@@ -157,6 +179,11 @@ DIAG_OPS = 12
 # rounded one by one (two more subtractions) and three argmax3 of three
 # compares each
 SKEW_DIRS_OPS = 23
+# per cell of csrc/halostair.cu (K8): pass 1 the base compare, T1's add,
+# T3's three subtractions and max, max(T1, T3), omega's multiply,
+# subtraction and add, the running max; pass 2 the max with the block
+# prefix, T2's multiply and subtraction, H's max
+HALOSTAIR_OPS = 15
 # per in-band cell of csrc/banded.cu, counted as above: K12s 16 (max3 +
 # add, two gap maxima of a max and two subtractions, omega's three
 # operations, two running maxima, the base compare, T2's three in pass 2),
@@ -826,6 +853,7 @@ def check_partition(runs):
     from cse305_parallel_sequence_alignment_torch.models.batch import (
         BatchAligner,
     )
+    from cse305_parallel_sequence_alignment_torch.ops import longrow
     from cse305_parallel_sequence_alignment_torch.parallel.partition import (
         score_chain,
     )
@@ -837,6 +865,9 @@ def check_partition(runs):
         whole, _ = BatchAligner().score_batch([(run["a"], run["b"])])
         t_whole = time.perf_counter() - t0
         run["whole"] = float(whole[0])
+        # the whole pair's K6 finals, which the long-pair pipeline must give
+        run["k6_finals"] = longrow.long_fill(*longrow._job_bucket(
+            [(ea, eb, -1)], "cuda"), ScoringParams())[0].cpu().numpy()
         cs = score_chain(ea, eb, res.chain, ScoringParams())
         if not res.score == cs == float(whole[0]):
             raise RuntimeError(f"{name}: stitched score {res.score}, chain "
@@ -1027,18 +1058,273 @@ def phase_segment_kernels(report, ref, out):
           flush=True)
 
 
+LONGSEQ_ROWS = 256  # rows a pipeline step on the long-pair path
+# the long-pair path's column-sharded meshes: one card, and four entries of
+# it (device-to-device halos between distinct cards need more cards)
+LONGSEQ_MESHES = (("1 card", ("cuda:0",)), ("4 x cuda:0", ("cuda:0",) * 4))
+
+
+def phase_longseq_main(runs, out):
+    """The column-sharded pipeline alone, for the launch window:
+    ``longseq_score`` of the 97 kb pair on one card and on four entries of
+    it, ``longseq_lastrow`` of the 13 kb x 97 kb pair, and that pair
+    through ``PartitionedAligner(p=4, fill_backend="sharded")``."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.ops import halostair
+    from cse305_parallel_sequence_alignment_torch.parallel import longseq
+    from cse305_parallel_sequence_alignment_torch.parallel.mesh import Mesh
+    from cse305_parallel_sequence_alignment_torch.parallel.partition import (
+        PartitionedAligner,
+    )
+
+    longseq.ROUTES.update(kernel=0, xla=0)
+    long, tall = runs
+
+    def timed_run(fn):
+        before = halostair.halostair_step.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        return res, time.perf_counter() - t0, \
+            halostair.halostair_step.launches - before
+
+    for name, devs in LONGSEQ_MESHES:
+        out[name] = timed_run(lambda: longseq.longseq_score(
+            long["ea"], long["eb"], mesh=Mesh(devs), row_chunk=LONGSEQ_ROWS))
+    out["lastrow"] = timed_run(lambda: longseq.longseq_lastrow(
+        tall["ea"], tall["eb"], mesh=Mesh(["cuda:0"]),
+        row_chunk=LONGSEQ_ROWS))
+    al = PartitionedAligner(p=4, fill_backend="sharded")
+    out["partition"] = timed_run(lambda: al.align(tall["a"], tall["b"]))
+    out["partition_phases"] = dict(al.last_phases)
+    out["routes"] = dict(longseq.ROUTES)
+
+
+def check_longseq(runs, out):
+    """Gates of the long-pair pipeline: both meshes' finals = the 97 kb
+    pair's whole-pair K6 finals; the last row = K6's; the sharded
+    partition = the fused one; every fill through the kernel route."""
+    from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+    from cse305_parallel_sequence_alignment_torch.ops import longrow
+    from cse305_parallel_sequence_alignment_torch.parallel.longseq import (
+        longseq_pipeline_stats,
+    )
+
+    long, tall = runs
+    m, n = len(long["ea"]), len(long["eb"])
+    for name, devs in LONGSEQ_MESHES:
+        fin, dt, calls = out[name]
+        if not np.array_equal(fin, long["k6_finals"]):
+            raise RuntimeError(f"longseq_score on {name}: {fin}, whole-pair "
+                               f"K6 {long['k6_finals']}")
+        stats = longseq_pipeline_stats(m, n, len(devs), LONGSEQ_ROWS)
+        print(f"[longseq] longseq_score {m} x {n} on {name}: finals {fin} = "
+              f"whole-pair K6 finals; {dt:.3f} s, {m * n / dt / 1e9:.3f} "
+              f"GCUPS; R {LONGSEQ_ROWS}, {calls} K8 calls "
+              f"({dt / calls * 1e3:.3f} ms a call, host clock); pipeline "
+              f"{json.dumps(stats)}", flush=True)
+    row, dt, calls = out["lastrow"]
+    want = longrow.long_lastrow(tall["ea"], tall["eb"], ScoringParams())
+    if not np.array_equal(row, want):
+        raise RuntimeError("longseq_lastrow differs from K6's last row")
+    m, n = len(tall["ea"]), len(tall["eb"])
+    print(f"[longseq] longseq_lastrow {m} x {n} on 1 card: (3, {n + 1}) = "
+          f"K6's last row; {dt:.3f} s, {m * n / dt / 1e9:.3f} GCUPS; R "
+          f"{LONGSEQ_ROWS}, {calls} K8 calls", flush=True)
+    res, dt, calls = out["partition"]
+    if result_key(res) != result_key(tall["res"]):
+        raise RuntimeError("the sharded partition differs from the fused one")
+    phases = ", ".join(f"{k} {v:.3f}" for k, v in
+                       out["partition_phases"].items())
+    print(f"[longseq] PartitionedAligner(p=4, fill_backend='sharded') {m} x "
+          f"{n}: = the fused partition (score {res.score}); {dt:.3f} s "
+          f"({phases}); {calls} K8 calls (R 64, its default)", flush=True)
+    if out["routes"]["xla"] or not out["routes"]["kernel"]:
+        raise RuntimeError(f"longseq routes {out['routes']}")
+
+
+def record_k8(pred):
+    """(calls, patch): while ``patch`` is active, the pipeline's K8 calls
+    whose (cs, base) satisfy ``pred`` are recorded, inputs cloned before
+    the call (it advances state and fin in place)."""
+    import unittest.mock
+
+    from cse305_parallel_sequence_alignment_torch.parallel import longseq
+
+    calls, real = [], longseq.halostair_step
+
+    def rec(a, b, halo, state, fin, cs, base, la, st, params):
+        if pred(cs, base):
+            calls.append((a.clone(), b.clone(), halo.clone(), state.clone(),
+                          fin.clone(), cs, base, la, st, params))
+        return real(a, b, halo, state, fin, cs, base, la, st, params)
+    return calls, unittest.mock.patch.object(longseq, "halostair_step", rec)
+
+
+def check_k8(call, reps=0):
+    """Largest difference of K8 and its plain version on one recorded
+    call (halo, state and fin), and with ``reps`` the kernel's and the
+    plain version's ms."""
+    from cse305_parallel_sequence_alignment_torch.ops import halostair
+
+    a, b, halo, state, fin, *rest = call
+    s_k, f_k, s_p, f_p = state.clone(), fin.clone(), state.clone(), fin.clone()
+    h_k = halostair.halostair_step(a, b, halo, s_k, f_k, *rest)
+    h_p, pms = timed(lambda: halostair.halostair_step_plain(
+        a, b, halo, s_p, f_p, *rest), 1, warm=False)
+    err = max(max_err(h_k, h_p), max_err(s_k, s_p), max_err(f_k, f_p))
+    ms = None
+    if reps:  # on scratch carries, which the repeats advance
+        s_t, f_t = state.clone(), fin.clone()
+        _, ms = timed(lambda: halostair.halostair_step(a, b, halo, s_t, f_t,
+                                                       *rest), reps)
+    return err, ms, pms
+
+
+def phase_longseq_kernels(report, runs, out):
+    """K8 against its plain version, bit for bit, on the tensors the long
+    pipeline hands it: the 97 kb run on four entries again, outside the
+    launch window, recording the first, a middle and the row-la call of
+    each entry (that run must give the window's finals), each timed; then
+    every call of a 3 k x 12 k pair at g=0.3, h=1.7 and of a 300 x 5,000
+    pair for each start type, on four entries of the card."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+    from cse305_parallel_sequence_alignment_torch.parallel import longseq
+    from cse305_parallel_sequence_alignment_torch.parallel.mesh import Mesh
+
+    t_start = time.perf_counter()
+    long = runs[0]
+    m = len(long["ea"])
+    C = -(-m // LONGSEQ_ROWS)
+    picked = {0, (C // 2) * LONGSEQ_ROWS, (C - 1) * LONGSEQ_ROWS}
+    four = Mesh(LONGSEQ_MESHES[1][1])
+    calls, patch = record_k8(lambda cs, base: base in picked)
+    with patch:
+        fin = longseq.longseq_score(long["ea"], long["eb"], mesh=four,
+                                    row_chunk=LONGSEQ_ROWS)
+    if not np.array_equal(fin, out[LONGSEQ_MESHES[1][0]][0]):
+        raise RuntimeError("the recorded pipeline run differs from the "
+                           "launch window's")
+    rep = report["K8"]
+    for call in calls:
+        a, b, halo, state, fin_in, cs, base, la = call[:8]
+        err, ms, pms = check_k8(call, reps=3)
+        rows, nc = min(len(a), la - base), len(b)
+        print(f"[longseq-kernels] 97 kb pipeline, entry at column {cs}, rows "
+              f"{base + 1}-{base + rows} x {nc} columns: err {err} "
+              f"{ms:.3f} ms (plain {pms:.1f} ms), "
+              f"{rows * nc / ms / 1e6:.2f} GCUPS", flush=True)
+        if err:
+            raise RuntimeError(f"K8 disagrees with its plain version at "
+                               f"column {cs}, base {base}")
+        rep["max_abs_err"] = max(rep["max_abs_err"], err)
+        if base == (C // 2) * LONGSEQ_ROWS and cs > 0 and "ms" not in rep:
+            rep["ms"], rep["plain_ms"] = ms, pms
+            # each input read once, each output written once: a, b, the
+            # halo in and out, the carries (2 x nc) and the capture
+            # (3 x nc) in and out
+            moved = nbytes(a, b) + 2 * nbytes(halo) + 2 * nbytes(state) \
+                + 2 * nbytes(fin_in)
+            rep["bound_ms"], rep["bound_by"] = bound(
+                HALOSTAIR_OPS * rows * nc, moved)
+    checked = len(calls)
+    rng = np.random.default_rng(19)
+    small = [(NON_DYADIC, -1, 3000, 12000, LONGSEQ_ROWS)] + [
+        ({}, st, 300, 5000, 64) for st in (-1, -2, -3, 1, 2, 3)]
+    for kw, st, sm, sn, rc in small:
+        params = ScoringParams(**kw)
+        x, y = ACGT[rng.integers(0, 4, sm)], ACGT[rng.integers(0, 4, sn)]
+        calls, patch = record_k8(lambda cs, base: True)
+        with patch:
+            longseq.longseq_lastrow(x, y, params, st, mesh=four, row_chunk=rc)
+        errs = [check_k8(call)[0] for call in calls]
+        print(f"[longseq-kernels] {sm} x {sn} start {st} {params}: "
+              f"{len(calls)} K8 calls on four entries, max err {max(errs)}",
+              flush=True)
+        if max(errs):
+            raise RuntimeError(f"K8 disagrees with its plain version on "
+                               f"{sm} x {sn}, start {st}")
+        checked += len(calls)
+        torch.cuda.empty_cache()
+    print(f"[longseq-kernels] {checked} K8 calls held bit for bit in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def phase_sharded_main(local_pairs, out):
+    """The data-sharded aligners alone, for the launch window:
+    ``ShardedBatchAligner`` ``align_batch`` and ``score_batch`` on the
+    global path's 256 x 2 kb pairs over one card and over two entries of
+    it; ``ShardedLocalBatchAligner`` scores of the local path's pairs over
+    two entries."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.parallel.batch_shard import (
+        ShardedBatchAligner,
+        ShardedLocalBatchAligner,
+    )
+    from cse305_parallel_sequence_alignment_torch.parallel.mesh import Mesh
+
+    pairs = global_pairs()
+    for name, devs in (("1 card", ["cuda:0"]), ("2 x cuda:0", ["cuda:0"] * 2)):
+        al = ShardedBatchAligner(mesh=Mesh(devs, ("data",)))
+        al.align_batch(pairs)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = al.align_batch(pairs)
+        dt = time.perf_counter() - t0
+        out[name] = (res, al.score_batch(pairs), dt, dict(al.last_phases))
+    loc = ShardedLocalBatchAligner(mesh=Mesh(["cuda:0"] * 2, ("data",)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["local"] = (loc.score_batch(local_pairs), time.perf_counter() - t0)
+
+
+def check_sharded(local_scores, out):
+    """Every sharded result = the unsharded aligner's on the card."""
+    from cse305_parallel_sequence_alignment_torch.models.batch import (
+        BatchAligner,
+    )
+
+    pairs = global_pairs()
+    al = BatchAligner()
+    want = [result_key(r) for r in al.align_batch(pairs)]
+    want_scores = al.score_batch(pairs)
+    for name in ("1 card", "2 x cuda:0"):
+        res, scores, dt, phases = out[name]
+        if [result_key(r) for r in res] != want or not all(
+                np.array_equal(x, y) for x, y in zip(scores, want_scores)):
+            raise RuntimeError(f"ShardedBatchAligner on {name} differs from "
+                               f"BatchAligner")
+        split = ", ".join(f"{k} {v:.2f}" for k, v in phases.items())
+        print(f"[sharded] ShardedBatchAligner on {name}: align_batch 256 x "
+              f"2 kb {dt * 1e3:.2f} ms, {len(pairs) / dt:.1f} pairs/s "
+              f"(phases, summed over entries: {split}); align_batch and "
+              f"score_batch = BatchAligner's", flush=True)
+    scores, dt = out["local"]
+    if not all(np.array_equal(x, y) for x, y in zip(scores, local_scores)):
+        raise RuntimeError("ShardedLocalBatchAligner scores differ")
+    print(f"[sharded] ShardedLocalBatchAligner on 2 x cuda:0: score_batch "
+          f"{len(scores[0])} x 2 kb {dt:.3f} s = LocalBatchAligner's",
+          flush=True)
+
+
 PERF_MODES = {"global_score", "global_score_rowscan_kernel", "local_score",
               "global_dirs", "semiglobal_dirs", "overlap_dirs",
               "banded_score_W129", "banded_score_W513", "banded_dirs_W129",
-              "banded_dirs_W513", "longrow_score", "global_align_e2e"}
+              "banded_dirs_W513", "longrow_score", "global_align_e2e",
+              "longseq_score", "longseq_score_1dev",
+              "longseq_score_1dev_kernel"}
 
 
 def phase_perf():
-    """The ``perf`` command in a subprocess at its defaults with
-    ``--no-longseq``: every row parses, carries no error, names the card;
+    """The ``perf`` command in a subprocess at its defaults, its longseq
+    rows included: every row parses, carries no error, names the card;
     each is printed on a ``[perf]`` line."""
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", PKG, "perf", "--no-longseq"],
+    out = subprocess.run([sys.executable, "-m", PKG, "perf"],
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=900)
     if out.returncode != 0:
@@ -1123,6 +1409,46 @@ def phase_cli():
                                f"{out.stdout}\n{out.stderr[-4000:]}")
         print(f"[cli] {cmd} --a {a} --b {b} -> {json.dumps(want)}",
               flush=True)
+
+
+def phase_cli_longscore(runs, out):
+    """``longscore --devices 1`` on the 97 kb pair (K6) scores what the
+    long-pair pipeline's finals give; ``--devices`` past the host's cards
+    fails naming their count (the CLI never repeats a card)."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.core import (
+        end_table_choice,
+    )
+
+    long = runs[0]
+    a, b = long["ea"].tobytes().decode(), long["eb"].tobytes().decode()
+    table, score = end_table_choice(
+        *(float(x) for x in out[LONGSEQ_MESHES[0][0]][0]), -1, 2.0)
+    res = subprocess.run(
+        [sys.executable, "-m", PKG, "longscore", "--a", a, "--b", b,
+         "--devices", "1"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    got = json.loads(res.stdout.splitlines()[-1]) if res.returncode == 0 \
+        else None
+    if got is None or (got["score"], got["end_table"]) != (score, table):
+        raise RuntimeError(f"CLI longscore failed or differs (rc "
+                           f"{res.returncode}): {res.stdout[-2000:]}\n"
+                           f"{res.stderr[-4000:]}")
+    print(f"[cli] longscore --devices 1 (K6) on {len(a)} x {len(b)} -> score "
+          f"{got['score']}, table {got['end_table']} = the pipeline's finals; "
+          f"{got['seconds']} s", flush=True)
+    cards = torch.cuda.device_count()
+    res = subprocess.run(
+        [sys.executable, "-m", PKG, "longscore", "--a", "ACGT", "--b", "ACG",
+         "--devices", str(cards + 1)], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    last = (res.stderr.strip().splitlines() or [""])[-1]
+    if res.returncode == 0 or f"has {cards} card" not in last:
+        raise RuntimeError(f"CLI longscore --devices {cards + 1} did not "
+                           f"refuse: rc {res.returncode}, {last}")
+    print(f"[cli] longscore --devices {cards + 1} on {cards} card(s) -> "
+          f"{last}", flush=True)
 
 
 def mutate_core(rng, core, sub, indel, alphabet=ACGT):
@@ -2124,6 +2450,7 @@ def main():
         banded,
         device_walk,
         diag,
+        halostair,
         local,
         longrow,
         longstair,
@@ -2256,6 +2583,11 @@ def main():
                          replaces="cse305_parallel_sequence_alignment_tpu/"
                                   "ops/device_walk.py:35",
                          fn=device_walk.step_walk, counter="skew_launches"),
+        "K8": dict(name="halostair_step (K8 column-sharded pipeline step)",
+                   route="cuda", source=f"{src}/halostair.cu",
+                   replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                            "pallas_halostair.py:93",
+                   fn=halostair.halostair_step),
     }
     for rep in report.values():
         # no single PyTorch call computes a Gotoh or SW fill or walk
@@ -2303,6 +2635,12 @@ def main():
     stamp("partition")
     phase_long_main(report, runs)
     stamp("long kernels at the partition's shapes")
+    ls_out = {}
+    run_path("longseq", lambda: phase_longseq_main(runs, ls_out), ("K8",))
+    check_longseq(runs, ls_out)
+    stamp("longseq path")
+    phase_longseq_kernels(report, runs, ls_out)
+    stamp("longseq kernels")
     phase_backend_kernels(report)
     stamp("backend kernels")
     bref, bout = backends_reference(runs), {}
@@ -2327,7 +2665,12 @@ def main():
              ("K9s", "K9d", "K9w"))
     check_local(data, local_out)
     stamp("local")
-    del data, local_out
+    sharded_out = {}
+    run_path("sharded", lambda: phase_sharded_main(data, sharded_out),
+             ("K1", "K2", "K3", "K9s"))
+    check_sharded(local_out["scores"], sharded_out)
+    stamp("sharded path")
+    del data, local_out, sharded_out
     sgd, ovd = sg_data(), ov_data()
     phase_free_kernels(report, sgd, ovd)
     stamp("free-end kernels")
@@ -2340,6 +2683,7 @@ def main():
         check_free(mode, d, free_out)
         stamp(f"{mode} path")
     phase_cli()
+    phase_cli_longscore(runs, ls_out)
     stamp("cli")
     phase_perf()
     stamp("perf")

@@ -13,14 +13,19 @@ many pairs, on an NVIDIA H100:
                 versions: K1 dirs16+runs fill, K3 score fill, K2
                 run-length walk (row and band layout), K4d/K4s
                 substitution-matrix fills, K12s/K12d band fills, K6
-                long fill, K7 single-job last row,
+                long fill, K7 single-job last row, K8 pipeline step,
                 K9s/K9d local fills, K9w local walk, K10s/K10d
                 semi-global and K11s/K11d overlap fills
 - ``models``    ``BatchAligner`` (global mode), ``GotohAligner``,
                 ``BandedAligner``,
                 ``LocalBatchAligner`` (local mode, CIGARs),
                 ``SemiGlobalBatchAligner`` and ``OverlapBatchAligner``
-- ``parallel``  ``PartitionedAligner`` (balanced partition)
+- ``parallel``  ``PartitionedAligner`` (balanced partition), the
+                column-sharded long-pair pipeline (``longseq_score``,
+                ``longseq_lastrow``, ``longseq_score_batch``, kernel K8),
+                ``ShardedBatchAligner``/``ShardedLocalBatchAligner``,
+                meshes (``make_seq_mesh``, ...) and process groups
+                (``init_distributed``)
 - ``native``    host replay, render and chain builds (built from
                 ``csrc/tsalib.cpp``)
 - ``utils``     run configuration, FASTA input, BLOSUM62
@@ -56,6 +61,12 @@ __all__ = [
     "score_pairs",
     "LocalBatchAligner",
     "LocalAlignmentResult",
+    "PartitionedAligner",
+    "ShardedBatchAligner",
+    "ShardedLocalBatchAligner",
+    "longseq_score",
+    "longseq_lastrow",
+    "make_seq_mesh",
     "__version__",
 ]
 
@@ -64,4 +75,9 @@ def __getattr__(name):
     if name in ("LocalBatchAligner", "LocalAlignmentResult"):
         from cse305_parallel_sequence_alignment_torch.models import local
         return getattr(local, name)
+    if name in ("PartitionedAligner", "ShardedBatchAligner",
+                "ShardedLocalBatchAligner", "longseq_score",
+                "longseq_lastrow", "make_seq_mesh"):
+        from cse305_parallel_sequence_alignment_torch import parallel
+        return getattr(parallel, name)
     raise AttributeError(name)

@@ -9,7 +9,8 @@ output format, plus ``--device`` ("cuda" by default):
   overlap    one overlap (dovetail) alignment (prints JSON)
   batch      score/align many pairs from a FASTA file
   partition  balanced-partition alignment of one long pair
-  longscore  score of one long pair through the long fill (K6)
+  longscore  score of one long pair: the long fill (K6), or with
+             --devices N the column-sharded pipeline (K8)
   perf       GCUPS sweep of the kernels (JSON lines)
   info       versions and devices
 """
@@ -212,11 +213,9 @@ def cmd_partition(args):
 
 
 def cmd_longscore(args):
-    """Score one (possibly huge) pair through the long fill (K6)."""
-    if args.devices > 1:
-        raise NotImplementedError(
-            "longscore across devices (the column-sharded pipeline, kernel "
-            "K8) is not ported yet: ROADMAP queue 1 item 13")
+    """Score one (possibly huge) pair: on one device the long fill (K6);
+    on ``--devices N`` the column-sharded pipeline over ``N`` devices of
+    ``--device`` (kernel K8 on cards; a CPU mesh repeats the CPU)."""
     cfg = config_from_args(args)
     a, b = _resolve_pair(args, cfg)
     import torch
@@ -225,23 +224,34 @@ def cmd_longscore(args):
         encode_seq,
         end_table_choice,
     )
-    from cse305_parallel_sequence_alignment_torch.ops.longrow import (
-        long_fill,
-    )
     ea = encode_seq(a) if isinstance(a, (str, bytes)) else a
     eb = encode_seq(b) if isinstance(b, (str, bytes)) else b
     t0 = time.perf_counter()
-    args_t = [torch.from_numpy(x).to(args.device) for x in (
-        ea[None, :], eb[None, :], np.array([len(ea)], np.int32),
-        np.array([len(eb)], np.int32), np.array([-1], np.int32))]
-    finals = long_fill(*args_t, cfg.params)[0].cpu().numpy()
+    if args.devices > 1:
+        from cse305_parallel_sequence_alignment_torch.parallel.longseq import (
+            longseq_score,
+        )
+        from cse305_parallel_sequence_alignment_torch.parallel.mesh import (
+            make_seq_mesh,
+        )
+        mesh = make_seq_mesh(args.devices, device=args.device)
+        finals = longseq_score(ea, eb, cfg.params, mesh=mesh,
+                               row_chunk=args.row_chunk)
+    else:
+        from cse305_parallel_sequence_alignment_torch.ops.longrow import (
+            long_fill,
+        )
+        args_t = [torch.from_numpy(x).to(args.device) for x in (
+            ea[None, :], eb[None, :], np.array([len(ea)], np.int32),
+            np.array([len(eb)], np.int32), np.array([-1], np.int32))]
+        finals = long_fill(*args_t, cfg.params)[0].cpu().numpy()
     dt = time.perf_counter() - t0
     table, score = end_table_choice(
         float(finals[0]), float(finals[1]), float(finals[2]), -1, cfg.h)
     print(json.dumps({
         "score": score, "end_table": table,
         "m": len(a), "n": len(b),
-        "devices": 1,
+        "devices": args.devices,
         "seconds": round(dt, 3),
         "gcups": round(len(a) * len(b) / dt / 1e9, 3),
     }))
@@ -344,10 +354,14 @@ def main(argv=None):
     p.set_defaults(fn=cmd_partition)
 
     p = sub.add_parser("longscore",
-                       help="score of one long pair (long fill, K6)")
+                       help="score of one long pair (K6, or the sharded "
+                            "pipeline K8 across devices)")
     _add_pair_args(p)
     p.add_argument("--devices", type=int, default=1,
-                   help="cards to shard the columns over (only 1 so far)")
+                   help="devices to shard the columns over (1: the long "
+                        "fill K6)")
+    p.add_argument("--row-chunk", type=int, default=256,
+                   help="rows a pipeline step (--devices > 1)")
     add_config_args(p)
     _add_device_arg(p)
     p.set_defaults(fn=cmd_longscore)
@@ -356,8 +370,8 @@ def main(argv=None):
     p.add_argument("--lengths", type=int, nargs="+", default=[512, 2048])
     p.add_argument("--batches", type=int, nargs="+", default=[64, 256])
     p.add_argument("--no-longseq", action="store_true",
-                   help="leave out the multi-device longseq rows (not "
-                        "ported yet; required)")
+                   help="leave out the longseq rows (the column-sharded "
+                        "pipeline)")
     _add_device_arg(p)
     p.set_defaults(fn=cmd_perf)
 

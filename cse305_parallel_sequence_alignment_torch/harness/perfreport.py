@@ -13,7 +13,13 @@ with the same ``mode`` names and fields:
   ``banded_score_W129``/``W513`` (K12s) and ``banded_dirs_W129``/``W513``
   (K12d), whose GCUPS count band cells;
 - ``longrow_score`` (K6) on 8 pairs of 8 L, and ``global_align_e2e``
-  (``BatchAligner.align_batch``: fill, walk, replay and render).
+  (``BatchAligner.align_batch``: fill, walk, replay and render);
+- unless ``include_longseq`` is false: ``longseq_score`` (the
+  column-sharded pipeline, ``parallel/longseq.py``) of one pair of 4 L
+  over every device of ``device``, with the ``pipeline_*`` accounting of
+  ``longseq_pipeline_stats``, ``longseq_score_1dev`` on a one-device mesh
+  and, on a card, ``longseq_score_1dev_kernel`` (K8) at 12,288, 32,768
+  and 97,408 (the JAX report gates these on the TPU).
 
 The semi-global, overlap and banded dirs rows time the uint16 dirs16+runs
 kernels that the port's aligners launch (``"dirs": "u16+runs"``); the JAX
@@ -22,8 +28,7 @@ uploads its inputs and returns finished results (on a card it ends in a
 synchronise), as the JAX rows time the whole harness call. A failing row
 fails the report. Left out: the JAX report's TPU roofline constants, its
 device-resident and iteration-scaling rows (workarounds for the TPU's
-host link), and the ``longseq`` rows of the multi-device pipeline (kernel
-K8, ROADMAP queue 1 item 13), which raise ``NotImplementedError``.
+host link).
 """
 
 from __future__ import annotations
@@ -52,6 +57,13 @@ from cse305_parallel_sequence_alignment_torch.ops import (
     longrow,
     rowcb,
 )
+from cse305_parallel_sequence_alignment_torch.parallel.longseq import (
+    longseq_pipeline_stats,
+    longseq_score,
+)
+from cse305_parallel_sequence_alignment_torch.parallel.mesh import (
+    make_seq_mesh,
+)
 from cse305_parallel_sequence_alignment_torch.utils.observability import (
     gcups,
 )
@@ -79,11 +91,6 @@ def run_report(lengths=(512, 2048), batches=(64, 256), iters=3,
                include_longseq=True, stream=None, device="cuda"):
     """Run the sweep on ``device``; prints one JSON line per row and
     returns the rows."""
-    if include_longseq:
-        raise NotImplementedError(
-            "the longseq rows (the column-sharded multi-device pipeline, "
-            "kernel K8) are not ported yet: ROADMAP queue 1 item 13; pass "
-            "--no-longseq")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"perf on {device!r} needs a CUDA card and none "
@@ -166,4 +173,28 @@ def run_report(lengths=(512, 2048), batches=(64, 256), iters=3,
     emit({"mode": "global_align_e2e", "len": L, "batch": B,
           "seconds": round(dt, 4), "pairs_per_s": round(B / dt, 1),
           "gcups": round(gcups(B * L * L, dt), 3)})
+
+    if include_longseq:
+        def longseq_row(mode, L, mesh, row_chunk, reps, **extra):
+            x = rng.integers(65, 69, size=(L,)).astype(np.uint8)
+            y = rng.integers(65, 69, size=(L,)).astype(np.uint8)
+            dt, _ = _time_call(lambda: longseq_score(
+                x, y, params, mesh=mesh, row_chunk=row_chunk), reps)
+            emit({"mode": mode, "len": L, "devices": mesh.size,
+                  "seconds": round(dt, 4),
+                  "gcups": round(gcups(L * L, dt), 3), **extra})
+
+        mesh = make_seq_mesh(device=device)
+        L = max(lengths) * 4
+        longseq_row("longseq_score", L, mesh, 256, max(1, iters - 1),
+                    **{"pipeline_" + k: v for k, v in longseq_pipeline_stats(
+                        L, L, mesh.size, row_chunk=256).items()
+                       if k != "devices"})
+        mesh1 = make_seq_mesh(1, device=device)
+        longseq_row("longseq_score_1dev", L, mesh1, 256, 1)
+        if dev.type == "cuda":
+            # K8 on one card at the per-device share of a 97 kb pair on an
+            # eight-device mesh, and at 32 kb and the whole 97 kb pair
+            for Lw in (12288, 32768, 97408):
+                longseq_row("longseq_score_1dev_kernel", Lw, mesh1, 1024, 1)
     return rows

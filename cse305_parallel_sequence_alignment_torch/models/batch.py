@@ -329,17 +329,26 @@ class BatchAligner:
                                               self.matrix)
                 st = np.full(len(chunk), self.start_type, np.int32)
                 en = np.full(len(chunk), self.end_type, np.int32)
-                t_a, t_b, t_la, t_lb, t_st, t_en = self._to_dev(
-                    a, b, la, lb, st, en)
-                if self._table is not None:
-                    fin = submat_score_fill(t_a, t_b, t_la, t_lb, t_st,
-                                            self._table, self.params)
-                else:
-                    fin = fill(t_a, t_b, t_la, t_lb, t_st, self.params)
-                tb, sc = _end_choice(fin, t_en, self.params.h)
-                scores[chunk] = sc.cpu().numpy()
-                tables[chunk] = tb.cpu().numpy()
+                scores[chunk], tables[chunk] = self._score_chunk(
+                    fill, a, b, la, lb, st, en)
         return scores, tables
+
+    def _score_dispatch(self, fill, a, b, la, lb, st, en):
+        """Queue the score fill and end choice of one padded chunk on the
+        device; returns (scores, tables) device tensors."""
+        t_a, t_b, t_la, t_lb, t_st, t_en = self._to_dev(a, b, la, lb, st, en)
+        if self._table is not None:
+            fin = submat_score_fill(t_a, t_b, t_la, t_lb, t_st, self._table,
+                                    self.params)
+        else:
+            fin = fill(t_a, t_b, t_la, t_lb, t_st, self.params)
+        tb, sc = _end_choice(fin, t_en, self.params.h)
+        return sc, tb
+
+    def _score_chunk(self, fill, a, b, la, lb, st, en):
+        """(scores, tables) of one padded chunk as host arrays."""
+        sc, tb = self._score_dispatch(fill, a, b, la, lb, st, en)
+        return sc.cpu().numpy(), tb.cpu().numpy()
 
     def align_batch(self, pairs, offsets=None, traceback_mode="parity",
                     start_types=None, end_types=None):

@@ -71,10 +71,14 @@ class ChunkedAligner:
         for key, idxs in buckets.items():
             for s in range(0, len(idxs), self.max_batch):
                 chunk = idxs[s: s + self.max_batch]
-                arrays = _bucket_arrays(enc_a, enc_b, chunk, key)
-                out[chunk] = self._score_fill(
-                    *self._to_dev(*arrays), self.params).cpu().numpy()
+                out[chunk] = self._score_chunk(
+                    _bucket_arrays(enc_a, enc_b, chunk, key))
         return out
+
+    def _score_chunk(self, arrays):
+        """Score-fill outputs (count, score_width) of one padded chunk."""
+        return self._score_fill(*self._to_dev(*arrays),
+                                self.params).cpu().numpy()
 
     def chunk_size(self, key, count):
         """Pairs per ``align_batch`` chunk of a bucket of shape ``key``

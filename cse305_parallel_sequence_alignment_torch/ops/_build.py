@@ -31,8 +31,8 @@ PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 TSALIB = CSRC / "tsalib.cpp"
-KERNELS = ("rowcb", "walk", "longrow", "local", "diag",
-           "banded")  # csrc/<name>.cu
+KERNELS = ("rowcb", "walk", "longrow", "local", "diag", "banded",
+           "halostair")  # csrc/<name>.cu
 # mode numbers of csrc/diag.cu and csrc/rowcb.cu
 MODES = {"global": 0, "semiglobal": 1, "overlap": 2}
 

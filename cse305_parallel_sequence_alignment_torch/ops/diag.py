@@ -79,11 +79,9 @@ def _argmax3(c1, c2, c3):
                        torch.where(c2 >= c3, 1, 2))
 
 
-def diag_fill_plain(a, b, la, lb, st, params, mode, want_dirs=False):
+def diag_fill_plain(a, b, la, lb, st, params, mode):
     """Plain PyTorch K3/K10s/K11s: an anti-diagonal loop over (B, n+1)
-    tensors in the kernel's float32 order (see the module docstring).
-    With ``want_dirs`` (global mode, K5) returns (skew dirs (m+n+1, B,
-    n+1) uint8, finals)."""
+    tensors in the kernel's float32 order (see the module docstring)."""
     code = _build.MODES[mode]
     B, m = a.shape
     n = b.shape[1]
@@ -119,9 +117,6 @@ def diag_fill_plain(a, b, la, lb, st, params, mode, want_dirs=False):
     else:
         p = (torch.where(at0, zero, neg).expand(B, -1), negs, negs)
     q = (negs, negs, negs)
-    if want_dirs:
-        dirs = torch.zeros((m + n + 1, B, n + 1), dtype=torch.uint8,
-                           device=dev)
     if code == 1:  # the last query row, captured as each cell passes
         rv = [negs] * 3
     if code == 2:  # best (value, diagonal, table, column)
@@ -139,21 +134,9 @@ def diag_fill_plain(a, b, la, lb, st, params, mode, want_dirs=False):
         fvec = torch.where(av == bext, match, mismatch)
         p1, p2, p3 = p
         q1, q2, q3 = q
-        if want_dirs:
-            # K5 compares the rounded candidates, as _diag_step does
-            s1, s2, s3 = _shift(q1), _shift(q2), _shift(q3)
-            c2 = (_shift(p1) - gh, _shift(p2) - g, _shift(p3) - gh)
-            c3 = (p1 - gh, p2 - gh, p3 - g)
-            t1 = fvec + torch.maximum(torch.maximum(s1, s2), s3)
-            t2 = torch.maximum(torch.maximum(c2[0], c2[1]), c2[2])
-            t3 = torch.maximum(torch.maximum(c3[0], c3[1]), c3[2])
-            dirs[d] = torch.where(interior, _argmax3(s1, s2, s3)
-                                  | (_argmax3(*c2) << 2)
-                                  | (_argmax3(*c3) << 4), 0).to(torch.uint8)
-        else:
-            t1 = fvec + _shift(torch.maximum(torch.maximum(q1, q2), q3))
-            t2 = _shift(torch.maximum(torch.maximum(p1, p3) - gh, p2 - g))
-            t3 = torch.maximum(torch.maximum(p1, p2) - gh, p3 - g)
+        t1 = fvec + _shift(torch.maximum(torch.maximum(q1, q2), q3))
+        t2 = _shift(torch.maximum(torch.maximum(p1, p3) - gh, p2 - g))
+        t3 = torch.maximum(torch.maximum(p1, p2) - gh, p3 - g)
         t1 = torch.where(interior, t1, neg)
         t2 = torch.where(interior, t2, neg)
         t3 = torch.where(interior, t3, neg)
@@ -199,7 +182,7 @@ def diag_fill_plain(a, b, la, lb, st, params, mode, want_dirs=False):
             bj = torch.where(better, cj, bj)
         p, q = (t1, t2, t3), p
     if code == 0:
-        return (dirs, fin) if want_dirs else fin
+        return fin
     if code == 1:
         # value desc, then column asc, then table T1 > T2 > T3
         cv = torch.maximum(torch.maximum(rv[0].max(dim=1).values,
@@ -220,8 +203,82 @@ def score_fill_plain(a, b, la, lb, st, params):
 
 
 def skew_dirs_fill_plain(a, b, la, lb, st, params):
-    """Plain PyTorch K5: (skew dirs (m+n+1, B, n+1) uint8, finals (B, 3))."""
-    return diag_fill_plain(a, b, la, lb, st, params, "global", want_dirs=True)
+    """Plain PyTorch K5: (skew dirs (m+n+1, B, n+1) uint8, finals (B, 3)).
+
+    The anti-diagonal loop of ``diag_fill_plain`` with few PyTorch calls a
+    diagonal. The three tables of a diagonal live in one (3, B, n+2)
+    buffer whose column 0 stays -inf, so a shift by one column is a view;
+    the nine candidates of the diagonal's cells, K5's rounded ones (as
+    ``_diag_step`` compares them), are stacked into one tensor whose max
+    over the candidates gives T1's max3 and T2, T3, and whose argmax (the
+    first on ties: T1 >= T2 >= T3) gives the three codes; the cells
+    outside the interior are contiguous column ranges of the diagonal,
+    set by slices; the finals are read on the diagonals la + lb alone.
+    Bit-equal to ``_dirs_kernel`` and to K5."""
+    B, m = a.shape
+    n = b.shape[1]
+    dev = a.device
+    f32 = torch.float32
+    g, h, match, mismatch = (torch.tensor(float(x), dtype=f32, device=dev)
+                             for x in params.astuple())
+    gh = g + h  # float32, as XLA folds the JAX fills' x - g - h
+    # subtrahends of the (i, j-1) and (i-1, j) candidates of T1, T2, T3
+    sub = torch.stack([torch.stack([gh, g, gh]),
+                       torch.stack([gh, gh, g])])[:, :, None, None]
+    weight = torch.tensor([1, 4, 16], device=dev)[:, None, None]
+    jg = g * torch.arange(n + 1, dtype=f32, device=dev)
+    stc = st.to(torch.int64)[:, None]
+    row0_2 = torch.where(stc == -2, -jg, torch.where(
+        (stc == 1) | (stc == 3), NEG_INF, -h - jg))      # (B, n+1)
+    df = torch.arange(m + 1, dtype=f32, device=dev)[:, None]
+    col0_3 = torch.where(stc.T == -3, -(g * df), torch.where(
+        (stc.T == 1) | (stc.T == 2), NEG_INF, -h - g * df))  # (m+1, B)
+    # A reversed and padded: diagonal d's codes A[d-1-j], j = 0..n, are
+    # the slice [m - d + n + 1, m - d + 2n + 2)
+    arev = torch.full((B, m + 2 * n + 2), -1, dtype=torch.int32, device=dev)
+    arev[:, n + 1: n + 1 + m] = a.flip(1).to(torch.int32)
+    bext = torch.cat([torch.full((B, 1), PAD_B, dtype=torch.int32,
+                                 device=dev), b.to(torch.int32)], dim=1)
+    q, p, cur = (torch.full((3, B, n + 2), NEG_INF, dtype=f32, device=dev)
+                 for _ in range(3))
+    # diagonal 0: the corner cell
+    p[0, :, 1] = torch.where((stc[:, 0] == 1) | (stc[:, 0] == -1), 0.0,
+                             NEG_INF)
+    p[1, :, 1] = torch.where(stc[:, 0] == -2, 0.0, NEG_INF)
+    p[2, :, 1] = torch.where(stc[:, 0] == -3, 0.0, NEG_INF)
+    fin = torch.where((la + lb == 0)[:, None], p[:, :, 1].T, NEG_INF)
+    la_h, lb_h = la.tolist(), lb.tolist()
+    caps = {}
+    for k in range(B):
+        caps.setdefault(la_h[k] + lb_h[k], []).append(k)
+    cand = torch.empty((3, 3, B, n + 1), dtype=f32, device=dev)
+    best = torch.empty((3, B, n + 1), dtype=f32, device=dev)
+    arg = torch.empty((3, B, n + 1), dtype=torch.int64, device=dev)
+    dirs = torch.zeros((m + n + 1, B, n + 1), dtype=torch.uint8, device=dev)
+    for d in range(1, m + n + 1):
+        lo, hi = max(1, d - m), min(n, d - 1)  # interior columns
+        cand[0] = q[:, :, : n + 1]
+        torch.sub(p[:, :, : n + 1], sub[0], out=cand[1])
+        torch.sub(p[:, :, 1:], sub[1], out=cand[2])
+        torch.max(cand, dim=1, out=(best, arg))
+        av = arev[:, m - d + n + 1: m - d + 2 * n + 2]
+        torch.add(torch.where(av == bext, match, mismatch), best[0],
+                  out=cur[0, :, 1:])
+        cur[1:, :, 1:] = best[1:]
+        cur[:, :, 1: lo + 1] = NEG_INF
+        cur[:, :, hi + 2:] = NEG_INF
+        if d <= n:
+            cur[1, :, d + 1] = row0_2[:, d]
+        if d <= m:
+            cur[2, :, 1] = col0_3[d]
+        if lo <= hi:
+            dirs[d, :, lo: hi + 1] = (arg[:, :, lo: hi + 1]
+                                      * weight).sum(dim=0)
+        if d in caps:
+            ks = torch.tensor(caps[d], device=dev)
+            fin[ks] = cur[:, ks, lb[ks] + 1].T
+        q, p, cur = p, cur, q
+    return dirs, fin
 
 
 def _launch_geometry(n):

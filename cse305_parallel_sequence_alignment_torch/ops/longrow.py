@@ -63,16 +63,22 @@ def long_fill_plain(a, b, la, lb, st, params, want_row=False):
                         want_row=want_row)[1]
 
 
-def _geometry(B, n, device):
-    """(C, threads, nstrips, shared bytes): strips narrow enough that the
-    bucket's B * nstrips CTAs are about two per SM."""
-    ncol = n + 1
+def strip_geometry(B, ncol, device):
+    """(C, threads, nstrips) of B jobs of ``ncol`` columns: strips of
+    ``threads * C`` columns, narrow enough that the B * nstrips CTAs are
+    about two per SM (K6, K7 and K8 cut their columns so)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     threads = min(256, -(-ncol // 32) * 32)
     C = max(1, min(MAX_C, ncol * B // (2 * sms * threads)))
+    return C, threads, -(-ncol // (threads * C))
+
+
+def _geometry(B, n, device):
+    """(C, threads, nstrips, shared bytes) of a K6/K7 launch."""
+    C, threads, nstrips = strip_geometry(B, n + 1, device)
     W = threads * C
     smem = 128 + (W + 15) // 16 * 16 + 24 * (W + 1)
-    return C, threads, -(-ncol // W), smem
+    return C, threads, nstrips, smem
 
 
 @functools.lru_cache(maxsize=None)

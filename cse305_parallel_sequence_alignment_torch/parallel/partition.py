@@ -15,7 +15,9 @@ The segments are then solved as one mixed-type ``align_batch`` of the
 port's ``BatchAligner`` (K1 fill and K2 walk, or the route of its
 ``backend``) in ``traceback_mode="full"`` and their chains stitched. The
 last rows come from K6 (``ops/longrow.py``) or, for the few wide jobs of
-the top levels, K7 (``ops/longstair.py``).
+the top levels, K7 (``ops/longstair.py``); with ``fill_backend=
+"sharded"`` from the column-sharded pipeline over a mesh
+(``parallel/longseq.py`` ``longseq_lastrow``, kernel K8), task by task.
 """
 
 from __future__ import annotations
@@ -40,6 +42,9 @@ from cse305_parallel_sequence_alignment_torch.ops.longrow import (
     batched_crossings,
     long_lastrow,
 )
+from cse305_parallel_sequence_alignment_torch.parallel.longseq import (
+    longseq_lastrow,
+)
 
 FILL_BACKENDS = ("auto", "longrow", "rowscan", "sharded")
 PHASES = ("crossing_s", "segments_s", "stitch_s")
@@ -51,16 +56,18 @@ def _enc(s):
 
 
 def crossing_on_row(a_enc, b_enc, i_mid, params, start_type, end_type,
-                    device="cuda"):
+                    device="cuda", lastrow_fn=None):
     """Best crossing cell (j, t) on row ``i_mid`` of an optimal path, from
-    the forward and reverse last rows of K6 on ``device``. Returns (j, t,
+    the forward and reverse last rows of ``lastrow_fn(a, b, params,
+    start_type) -> (3, n+1)``, by default K6 on ``device``. Returns (j, t,
     total_score)."""
     h = params.h
-    fwd = long_lastrow(a_enc[:i_mid], b_enc, params, start_type, device)
+    if lastrow_fn is None:
+        lastrow_fn = functools.partial(long_lastrow, device=device)
+    fwd = lastrow_fn(a_enc[:i_mid], b_enc, params, start_type)
     # the reversed problem keeps A's and B's roles, so types map to
     # themselves
-    rev = long_lastrow(a_enc[i_mid:][::-1], b_enc[::-1], params, end_type,
-                       device)
+    rev = lastrow_fn(a_enc[i_mid:][::-1], b_enc[::-1], params, end_type)
     # rev row is indexed by reversed j: TR[i_mid][j] = rev[:, n - j]
     rev_al = rev[:, ::-1]
     stacked = np.stack([fwd[0] + rev_al[0], fwd[1] + rev_al[1] + h,
@@ -73,7 +80,8 @@ def crossing_on_row(a_enc, b_enc, i_mid, params, start_type, end_type,
 
 
 def balanced_partition(a, b, p, params=ScoringParams(), start_type=-1,
-                       end_type=-1, crossings_fn=None, device="cuda"):
+                       end_type=-1, crossings_fn=None, device="cuda",
+                       lastrow_fn=None):
     """p+1 crossing points [(i, j, t)] splitting the DP grid into p
     row-balanced segments; interior points carry positive table types.
 
@@ -82,7 +90,7 @@ def balanced_partition(a, b, p, params=ScoringParams(), start_type=-1,
     (start = point.t, end = -next_point.t; main_alignment.cpp:250-251).
     The bisection runs level by level: with ``crossings_fn``
     (``batched_crossings``) each level is one batched device fill,
-    otherwise ``crossing_on_row`` runs task by task."""
+    otherwise ``crossing_on_row`` runs task by task with ``lastrow_fn``."""
     a_enc, b_enc = _enc(a), _enc(b)
     m, n = a_enc.shape[0], b_enc.shape[0]
 
@@ -118,7 +126,8 @@ def balanced_partition(a, b, p, params=ScoringParams(), start_type=-1,
                 results = crossings_fn(tasks)
             else:
                 results = [
-                    crossing_on_row(sa, sb, im, params, st, en, device)
+                    crossing_on_row(sa, sb, im, params, st, en, device,
+                                    lastrow_fn)
                     for (sa, sb, im, st, en) in tasks]
             for (k_mid, i_mid, j_lo), (j_rel, t, _) in zip(keys, results):
                 points[k_mid] = (i_mid, j_lo + j_rel, t)
@@ -139,7 +148,9 @@ class PartitionedAligner:
     ``fill_backend`` picks the crossing search: "auto" and "longrow" run
     the level-batched ``batched_crossings``; "rowscan" runs the serial
     ``crossing_on_row`` through the K6 last row (the same points);
-    "sharded" (the multi-device pipeline, kernel K8) is not ported yet.
+    "sharded" runs the serial ``crossing_on_row`` through
+    ``longseq_lastrow`` over ``mesh`` (default: every card of ``device``;
+    the kernel K8 on CUDA), as the JAX package does.
     ``backend`` is the segment solves' ``BatchAligner`` backend (its
     values and routes; the crossing search does not depend on it).
     ``last_phases`` holds the host-clock seconds of the latest ``align``:
@@ -157,6 +168,8 @@ class PartitionedAligner:
     fill_backend: str = "auto"
     backend: str = "auto"
     device: str = "cuda"
+    # the seq mesh of fill_backend="sharded" (parallel/mesh.py)
+    mesh: object = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -165,17 +178,18 @@ class PartitionedAligner:
         if self.fill_backend not in FILL_BACKENDS:
             raise ValueError(f"fill_backend {self.fill_backend!r}: pick "
                              f"from {FILL_BACKENDS}")
-        if self.fill_backend == "sharded":
-            raise NotImplementedError(
-                "fill_backend='sharded' (the column-sharded multi-device "
-                "pipeline, kernel K8) is not ported yet: ROADMAP queue 1 "
-                "item 13")
         self.last_phases = dict.fromkeys(PHASES, 0.0)
 
     def _crossings_fn(self):
-        if self.fill_backend == "rowscan":
+        if self.fill_backend in ("rowscan", "sharded"):
             return None
         return functools.partial(batched_crossings, params=self.params,
+                                 device=self.device)
+
+    def _lastrow_fn(self):
+        if self.fill_backend != "sharded":
+            return None
+        return functools.partial(longseq_lastrow, mesh=self.mesh,
                                  device=self.device)
 
     def _pick_p(self, m, n):
@@ -203,7 +217,8 @@ class PartitionedAligner:
         a_enc, b_enc = self._oriented(a, b)
         return balanced_partition(
             a_enc, b_enc, self._pick_p(len(a_enc), len(b_enc)), self.params,
-            crossings_fn=self._crossings_fn(), device=self.device)
+            crossings_fn=self._crossings_fn(), device=self.device,
+            lastrow_fn=self._lastrow_fn())
 
     def align(self, a, b) -> AlignmentResult:
         clock = [time.perf_counter()]
