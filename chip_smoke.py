@@ -9,8 +9,8 @@ main paths, global full alignment of many pairs (match/mismatch and
 under a substitution matrix), the balanced partition of one long pair,
 the column-sharded long-pair pipeline, the ``BatchAligner`` backends,
 banded global alignment of the long pair, local (Smith-Waterman),
-semi-global and overlap alignment of many pairs, and the data-sharded
-aligners:
+semi-global and overlap alignment of many pairs, the data-sharded
+aligners, and the score-fill probes (K3'', P-trim, P-dual, K2'):
 
 1. card, torch and CUDA versions; the kernels' build time;
 2. each kernel against its plain PyTorch version on the card, bit for
@@ -80,6 +80,19 @@ aligners:
     result), and K5 and K2s (skew) against their plain versions, bit for
     bit, on each recorded chunk of 3.3 k x 24-27 k segments
     (``[segment-kernels]``);
+6f. K3'' two-carry score fill, P-trim and P-dual against their plain
+    versions, bit for bit, at 256 x 2 kb (seed 7, start type -1, every
+    la = m: timed) at the default parameters and at g=0.3, h=1.7, the
+    three equal there (P-dual also on 255 pairs), K3'' = K3' at the
+    default parameters, and K3'' on 8 ragged pairs with every start type
+    (``[rowscan2-kernels]``); K2' at G = 1 and 8 against its plain
+    version and K2 on the K1 dirs of step 4's pairs, in two chunks of 128
+    (``[group-walk]``);
+6g. the probes path, counters set to 0 again: each module of
+    ``probes/`` (``ab_rowscan2``, ``trim_rowscan``, ``dual_stream``,
+    ``walk_ab``) at full size, one A/B round, its JSON lines on
+    ``[probes]`` lines; gates: every ``cells_equal`` and ``exact`` true,
+    every ``mismatched_pairs`` 0, the pipeline's finals finite;
 6c. K12d, K12s and K2 in band layout against their plain versions, bit
     for bit: 256 related pairs x 2 kb at bands (64, 64) and (256, 256), 8
     ragged pairs with every start type, a band too wide for shared
@@ -133,8 +146,8 @@ aligners:
     must fail naming their count; and ``perf`` at its defaults, its
     longseq rows included (every row parses and has no error; printed on
     ``[perf]`` lines);
-13. every kernel of each path launched in step 4, 4b, 5, 6b, 6d, 6e, 8,
-    8a, 10 or 11.
+13. every kernel of each path launched in step 4, 4b, 5, 6b, 6d, 6e, 6g,
+    8, 8a, 10 or 11.
 
 Prints a JSON line of the kernels (times, bounds, launches), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Any
@@ -2429,6 +2442,197 @@ def check_banded(report, runs, out):
           f"the pair; chain length {len(res.chain)}", flush=True)
 
 
+# per cell of csrc/rowscan2.cu (K3'', P-dual): pass 1 the base compare,
+# T1's add, T3's two subtractions and max, m13's max; pass 2 omega's
+# multiply, subtraction and add, the running max; pass 3 those four
+# again, T2's subtraction, H's max
+RS2_OPS = 16
+
+
+def seed7_bucket(B=256, L=2048):
+    """256 random pairs of 2 kb (seed 7) as (a, b, la, lb, st) on the
+    card, every la = lb = L and start type -1."""
+    import torch
+    rng = np.random.default_rng(7)
+    full = np.full(B, L, np.int32)
+    arrays = (ACGT[rng.integers(0, 4, (B, L))],
+              ACGT[rng.integers(0, 4, (B, L))], full, full,
+              np.full(B, -1, np.int32))
+    return [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+            for x in arrays]
+
+
+def phase_rowscan2_kernels(report):
+    """K3'', P-trim and P-dual against their plain versions on the card,
+    bit for bit, at 256 x 2 kb (seed 7; start type -1, every la = m, the
+    probes' shape) at the default parameters (timed: the kernels line)
+    and at g=0.3, h=1.7; the three equal there (P-dual also on 255 pairs,
+    odd B), K3'' = K3' at the default parameters, and K3'' on 8 ragged
+    pairs with every start type at both parameter sets."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+    from cse305_parallel_sequence_alignment_torch.ops import rowcb, rowscan2
+
+    args = seed7_bucket()
+    a, b, la, lb, st = args
+    B, L = a.shape
+    cells = float(B) * L * L
+    psets = (("default", ScoringParams()),
+             ("g=0.3, h=1.7", ScoringParams(**NON_DYADIC)))
+    for pname, params in psets:
+        res = {}
+        for key, kern, plain, ops, ins in (
+                ("K3''", lambda: rowscan2.rowscan2_score_fill(*args, params),
+                 lambda: rowscan2.rowscan2_score_fill_plain(*args, params),
+                 RS2_OPS, args),
+                ("P-trim", lambda: rowcb.trim_rowscan_fill(a, b, lb, params),
+                 lambda: rowcb.trim_rowscan_fill_plain(a, b, lb, params),
+                 SWEEP_OPS, (a, b, lb)),
+                ("P-dual",
+                 lambda: rowscan2.dual_rowscan2_fill(a, b, lb, params),
+                 lambda: rowscan2.dual_rowscan2_fill_plain(a, b, lb, params),
+                 RS2_OPS, (a, b, lb))):
+            got, ms = timed(kern, 3)
+            want, pms = timed(plain, 1, warm=False)
+            err = max_err(got, want)
+            res[key] = (got, err, ms, pms)
+            rep = report[key]
+            rep["max_abs_err"] = max(rep["max_abs_err"], err)
+            if pname == "default":
+                rep["ms"], rep["plain_ms"] = ms, pms
+                rep["bound_ms"], rep["bound_by"] = bound(
+                    ops * cells, nbytes(*ins) + nbytes(got))
+        k3 = res["K3''"][0]
+        odd = rowscan2.dual_rowscan2_fill(a[:255], b[:255], lb[:255], params)
+        same = max(max_err(res["P-trim"][0], k3), max_err(res["P-dual"][0], k3),
+                   max_err(odd, k3[:255]))
+        apart = int((rowcb.rowscan_score_fill(*args, params) != k3).sum())
+        print(f"[rowscan2-kernels] 256 x 2 kb, {pname}: " + "; ".join(
+            f"{k} err {e} {ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS; plain "
+            f"{pms:.1f} ms)" for k, (_, e, ms, pms) in res.items())
+            + f"; P-trim/P-dual vs K3'' err {same}; finals where K3' "
+            f"parts from K3'': {apart}", flush=True)
+        if any(r[1] for r in res.values()) or same or (
+                pname == "default" and apart):
+            raise RuntimeError(f"a K3'' kernel disagrees at {pname}: "
+                               f"{ {k: r[1] for k, r in res.items()} }, "
+                               f"P-trim/P-dual {same}, K3' {apart}")
+    rng = np.random.default_rng(19)
+    rla = np.array([2048, 1, 700, 2048, 1500, 33, 1999, 0], np.int32)
+    rlb = np.array([2048, 2000, 1024, 5, 1501, 2048, 2047, 9], np.int32)
+    rst = np.array([-1, -2, -3, 1, 2, 3, -1, -2], np.int32)
+    ra, rb = bucket(rng, rla, rlb, 2048, 2048)
+    rargs = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+             for x in (ra, rb, rla, rlb, rst)]
+    for pname, params in psets:
+        err = max_err(rowscan2.rowscan2_score_fill(*rargs, params),
+                      rowscan2.rowscan2_score_fill_plain(*rargs, params))
+        print(f"[rowscan2-kernels] ragged 8 x <=2 kb, every start type, "
+              f"{pname}: K3'' err {err}", flush=True)
+        if err:
+            raise RuntimeError(f"K3'' disagrees on the ragged pairs: {err}")
+        report["K3''"]["max_abs_err"] = max(report["K3''"]["max_abs_err"],
+                                           err)
+
+
+def phase_group_walk(report):
+    """K2' at G = 1 and 8 against its plain version and against K2, on
+    the K1 dirs of the global path's pairs (256 x 2 kb, seed 7) in the
+    path's two chunks of 128, end tables chosen from K1's finals as the
+    path chooses them; timed on the first chunk (the kernels line)."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.core import (
+        ScoringParams,
+        encode_seq,
+    )
+    from cse305_parallel_sequence_alignment_torch.models.batch import (
+        _end_choice,
+    )
+    from cse305_parallel_sequence_alignment_torch.ops import (
+        device_walk,
+        rowcb,
+    )
+    from cse305_parallel_sequence_alignment_torch.probes.walk_ab import (
+        mismatched_pairs,
+    )
+
+    params = ScoringParams()
+    pairs = global_pairs()
+    enc = [np.stack([encode_seq(p[k]) for p in pairs]) for k in (0, 1)]
+    for c0 in (0, 128):
+        a, b = (torch.from_numpy(np.ascontiguousarray(x[c0: c0 + 128]))
+                .cuda() for x in enc)
+        B, L = a.shape
+        la = torch.full((B,), L, dtype=torch.int32, device="cuda")
+        st = torch.full_like(la, -1)
+        dirs, fin = rowcb.rowcb_fill(a, b, la, la, st, params)
+        tb, _ = _end_choice(fin, st, params.h)
+        steps = 2 * L + 1
+        k2, _ = device_walk.rle_walk(dirs, la, la, tb, steps)
+        want, pms = timed(lambda: device_walk.group_walk_rle_plain(
+            dirs, la, la, tb, steps), 1, warm=False)
+        errs = {}
+        for G in (1, 8):
+            (ent, used), ms = timed(lambda: device_walk.group_walk_rle(
+                dirs, la, la, tb, steps, G=G), 3 if c0 == 0 else 1)
+            err = max(max_err(ent, want[0]), max_err(used, want[1]))
+            bad = mismatched_pairs(k2, ent, used)
+            errs[G] = (err, bad, ms)
+            rep = report["K2'"]
+            rep["max_abs_err"] = max(rep["max_abs_err"], err)
+            if c0 == 0 and G == 8:
+                rep["ms"], rep["plain_ms"] = ms, pms
+                # one dirs cell read a round taken
+                rep["bound_ms"], rep["bound_by"] = bound(
+                    0, 2 * int(used.sum()) + nbytes(la, la, tb, ent, used))
+        print(f"[group-walk] chunk {c0 // 128} (128 x 2 kb): rounds mean "
+              f"{float(want[1].float().mean()):.2f}, max "
+              f"{int(want[1].max())}; " + "; ".join(
+                  f"G={G} err {e} pairs apart from K2 {bad} {ms:.3f} ms"
+                  for G, (e, bad, ms) in errs.items())
+              + f"; plain {pms:.1f} ms", flush=True)
+        if any(e or bad for e, bad, _ in errs.values()):
+            raise RuntimeError(f"K2' disagrees on chunk {c0 // 128}: {errs}")
+        del dirs
+        torch.cuda.empty_cache()
+
+
+def phase_probes(out):
+    """Each probe module once at full size, one A/B round, as a user runs
+    it (its ``main``); the lines are kept in ``out`` and printed on
+    ``[probes]`` lines."""
+    import contextlib
+    import importlib
+    import io
+
+    from cse305_parallel_sequence_alignment_torch.probes import MODULES
+
+    for name in MODULES:
+        mod = importlib.import_module(f"{PKG}.probes.{name}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(["--rounds", "1", "--reps", "3"])
+        rows = [json.loads(line) for line in buf.getvalue().splitlines()]
+        out[name] = rows
+        for r in rows:
+            print(f"[probes] {name} {json.dumps(r)}", flush=True)
+        print(f"[probes] {name}: {len(rows)} lines in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def check_probes(out):
+    """Every probe line that carries a result flag holds it."""
+    for name, rows in out.items():
+        for r in rows:
+            if r.get("cells_equal") is False or r.get("exact") is False or \
+                    r.get("mismatched_pairs", 0) or \
+                    r.get("finite") is False:
+                raise RuntimeError(f"probe {name} found a disagreement: {r}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2455,6 +2659,7 @@ def main():
         longrow,
         longstair,
         rowcb,
+        rowscan2,
     )
 
     card = card_line()
@@ -2588,6 +2793,25 @@ def main():
                    replaces="cse305_parallel_sequence_alignment_tpu/ops/"
                             "pallas_halostair.py:93",
                    fn=halostair.halostair_step),
+        "K3''": dict(name="rowscan2_score_fill (K3'' two-carry row-sweep "
+                          "score fill)", route="cuda",
+                     source=f"{src}/rowscan2.cu",
+                     replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                              "pallas_fill.py:896",
+                     fn=rowscan2.rowscan2_score_fill),
+        "K2'": dict(name="group_walk_rle (K2' grouped run-length walk)",
+                    route="cuda", source=f"{src}/walk.cu",
+                    replaces="cse305_parallel_sequence_alignment_tpu/ops/"
+                             "pallas_walk.py:41",
+                    fn=device_walk.group_walk_rle),
+        "P-trim": dict(name="trim_rowscan_fill (P-trim uniform-la K3')",
+                       route="cuda", source=f"{src}/rowcb.cu",
+                       replaces="scripts/kern_rowscan2.py:42",
+                       fn=rowcb.trim_rowscan_fill),
+        "P-dual": dict(name="dual_rowscan2_fill (P-dual two-pair K3'')",
+                       route="cuda", source=f"{src}/rowscan2.cu",
+                       replaces="scripts/probes/dual_halostair_r4.py:68",
+                       fn=rowscan2.dual_rowscan2_fill),
     }
     for rep in report.values():
         # no single PyTorch call computes a Gotoh or SW fill or walk
@@ -2651,6 +2875,15 @@ def main():
     phase_segment_kernels(report, bref, bout)
     stamp("backend kernels at the partition's segments")
     del bref, bout
+    phase_rowscan2_kernels(report)
+    stamp("rowscan2 kernels")
+    phase_group_walk(report)
+    stamp("group walk")
+    probe_out = {}
+    run_path("probes", lambda: phase_probes(probe_out),
+             ("K3''", "K2'", "P-trim", "P-dual"))
+    check_probes(probe_out)
+    stamp("probes")
     phase_banded_kernels(report, runs)
     banded_out = {}
     run_path("banded", lambda: phase_banded_main(runs, banded_out),

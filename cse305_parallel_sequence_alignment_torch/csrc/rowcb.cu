@@ -30,6 +30,17 @@
 //     replaces _rowdirs_kernel (ops/pallas_fill.py:508) with with_runs=False,
 //     one uint8 code d1 | d2 << 2 | d3 << 4 a cell; DIRS16 in that order is
 //     the same kernel's with_runs=True form (K1's cell encoding).
+//   UNIFORM (mode 0, no TABLE, no DIRS, FREE), P-trim rowcb_trim_fill:
+//     replaces _trim_kernel of the TPU probe scripts/kern_rowscan2.py:42
+//     (through trim_rowscan :96): K3' with every la = m and start type -1
+//     fixed, la and st not read, no capture inside the row loop (the
+//     finals are read from the row buffers after row m), lb per pair, and
+//     omega in the free modes' order, which is what XLA runs for the
+//     probe's jgc = g*j - g - h; its finals equal those of K3''
+//     (csrc/rowscan2.cu).
+//     The probe's other trims (the lane-0 selects of T1 and T2 dropped,
+//     -inf + finite = -inf doing their work) are TPU vector savings; this
+//     sweep never had them.
 // K1, K10d and K11d are the instantiations with TABLE = false, DIRS16. The
 // score-only K3 is the anti-diagonal kernel of csrc/diag.cu.
 //
@@ -136,7 +147,8 @@ struct Rows {
 };
 
 // FREE: omega in the free modes' order (K1'); modes 1 and 2 always use it.
-template <int MODE, bool TABLE, int DIRS, bool FREE>
+// UNIFORM: every la = m and start type -1, finals read after row m.
+template <int MODE, bool TABLE, int DIRS, bool FREE, bool UNIFORM = false>
 __global__ void __launch_bounds__(kMaxThreads)
 sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
              const int32_t* __restrict__ la, const int32_t* __restrict__ lb,
@@ -170,8 +182,8 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     Rows R{reinterpret_cast<float*>(rowmem),
            reinterpret_cast<uint16_t*>(rowmem + (size_t)ncol * 24), ncol};
 
-    const int sta = MODE == 0 ? st[pair] : 0;
-    const int lA = la[pair], lB = lb[pair];
+    const int sta = MODE == 0 ? (UNIFORM ? -1 : st[pair]) : 0;
+    const int lA = UNIFORM ? m : la[pair], lB = lb[pair];
     const uint8_t* arow = a + (size_t)pair * m;
     const uint8_t* brow = b + (size_t)pair * n;
     // column 0's sentinel 255 never indexes the table: f is read at j >= 1
@@ -211,7 +223,7 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
         } else if (DIRS == kDirs8) {
             drow8[j] = 0;
         }
-        if (lA == 0) {
+        if (!UNIFORM && lA == 0) {
             if (MODE == 0 && j == lB) {
                 fin[0] = r1;
                 fin[1] = r2;
@@ -348,7 +360,7 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
                     if (RUNS) pwl = PW[j];
                 }
                 if (MODE == 0) {
-                    if (i == lA && j == lB) {
+                    if (!UNIFORM && i == lA && j == lB) {
                         fin[0] = t1;
                         fin[1] = t2;
                         fin[2] = t3;
@@ -365,7 +377,15 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
         }
         __syncthreads();
     }
-    if (MODE == 0) return;
+    if (MODE == 0) {
+        // the thread that wrote column lb of row m reads it back
+        if (UNIFORM && lB >= c0 && lB < c1) {
+            fin[0] = R.T(m & 1, 0)[lB];
+            fin[1] = R.T(m & 1, 1)[lB];
+            fin[2] = R.T(m & 1, 2)[lB];
+        }
+        return;
+    }
 
     // block reduction of the per-thread end candidates (the head is free:
     // the last row's barrier has passed)
@@ -401,13 +421,13 @@ sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     }
 }
 
-template <int MODE, bool TABLE, int DIRS, bool FREE>
+template <int MODE, bool TABLE, int DIRS, bool FREE, bool UNIFORM = false>
 int launch(const uint8_t* a, const uint8_t* b, const int32_t* la,
            const int32_t* lb, const int32_t* st, void* dirs, float* out,
            char* scratch, int B, int m, int n, int C, int threads,
            size_t smem, float g, float h, float match, float mismatch,
            const float* table, int k1, cudaStream_t stream) {
-    auto kern = sweep_kernel<MODE, TABLE, DIRS, FREE>;
+    auto kern = sweep_kernel<MODE, TABLE, DIRS, FREE, UNIFORM>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
@@ -467,6 +487,23 @@ int rowcb_fill(const uint8_t* a, const uint8_t* b, const int32_t* la,
     if (free_order) ROWCB_LAUNCH(0, false, kDirs16, true);
     ROWCB_LAUNCH(0, false, kDirs16, false);
 #undef ROWCB_LAUNCH
+}
+
+// P-trim: the UNIFORM sweep (start type -1, every la = m) with omega in
+// the free modes' order and no dirs; arguments as rowcb_fill's (no la, st
+// or dirs). Returns a cudaError_t code.
+int rowcb_trim_fill(const uint8_t* a, const uint8_t* b, const int32_t* lb,
+                    float* out, char* scratch, int B, int m, int n, int C,
+                    int threads, long long smem, float g, float h,
+                    float match, float mismatch, void* stream) {
+    if (B == 0) return 0;
+    if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+        (long long)threads * C < n + 1)
+        return (int)cudaErrorInvalidValue;
+    return launch<0, false, kNoDirs, true, true>(
+        a, b, nullptr, lb, nullptr, nullptr, out, scratch, B, m, n, C,
+        threads, (size_t)smem, g, h, match, mismatch, nullptr, 0,
+        (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,10 +1,9 @@
 // Traceback walks for the H100 (sm_90a), plain C interface: the
-// run-length walk K2 and the single-step walk K2s.
+// run-length walk K2, its grouped form K2' and the single-step walk K2s.
 //
 // K2 rle_walk replaces _walk_core_rle with layout "row"
 // (cse305_parallel_sequence_alignment_tpu/ops/device_walk.py:124), which
-// is XLA on the TPU, and the experimental Pallas walk _walk_group_kernel
-// (ops/pallas_walk.py:41) that emits the same stream; with band_lo >= 0,
+// is XLA on the TPU; with band_lo >= 0,
 // the walk of layout ("band", band_lo) (device_walk.py:163-164) over the
 // K12d band dirs (csrc/banded.cu), cell (i, j) at column j - i + band_lo.
 //
@@ -30,6 +29,25 @@
 // row 0 or column 0 writes nothing. So does one whose start cell lies
 // outside dirs or whose table is not 1..3: it reads nothing, and the host
 // replay refuses its empty walk. used is the largest step count.
+//
+// K2' group_walk replaces the Pallas walk _walk_group_kernel
+// (ops/pallas_walk.py:41, through pallas_walk_rle :146): the same entry
+// stream as K2, laid out per pair, entries[pair, round] int32 of an
+// (B, R_pad) array, with used[pair] the pair's own round count. A walk
+// also stops once it has taken R_pad rounds, and a 0 terminator is then
+// written at entries[pair, min(used, R_pad - 1)] (with used == R_pad it
+// overwrites the last round, as the TPU kernel does). A pair that starts on
+// row 0 or column 0 takes no round. Table decoding follows that kernel
+// (any table but 2 or 3 reads d1's bits outside a run; only 1 takes runs).
+// The TPU kernel walks G pairs a grid step, interleaved so that G tile
+// DMAs are in flight at once; here one thread walks G pairs (G = 1, 2, 4
+// or 8, a template parameter) interleaved the same way: each round first
+// issues the G pairs' dependent reads, then decodes them, so G loads are
+// in flight per thread. G = 1 is K2's one pair a thread. A thread's pairs
+// are consecutive; the last thread masks the pairs past B, so B need not
+// divide by G (the TPU wrapper halves G until it does). The dirs are read
+// as uint16 cells of the port's (row, pair, column) layout; the pair
+// stride may exceed the number of walked pairs (a padded fill).
 //
 // Design and bounds. One thread per pair: the walk is a chain of
 // dependent loads (~a few hundred ns each from HBM, the cells of a pair's
@@ -109,6 +127,86 @@ __global__ void step_walk_kernel(const uint8_t* __restrict__ dirs,
     atomicMax(used, k);
 }
 
+template <int G>
+__global__ void group_walk_kernel(const uint16_t* __restrict__ dirs,
+                                  const int32_t* __restrict__ la,
+                                  const int32_t* __restrict__ lb,
+                                  const int32_t* __restrict__ t0,
+                                  int32_t* __restrict__ entries,
+                                  int32_t* __restrict__ used, int B,
+                                  int pair_stride, int nrows, int ncols,
+                                  int R_pad) {
+    const int g0 = (blockIdx.x * blockDim.x + threadIdx.x) * G;
+    if (g0 >= B) return;
+    int iv[G], jv[G], tv[G], rd[G];
+    bool alive[G];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+        const int b = g0 + u < B ? g0 + u : g0;
+        iv[u] = la[b];
+        jv[u] = lb[b];
+        tv[u] = t0[b];
+        rd[u] = 0;
+        alive[u] = g0 + u < B && iv[u] > 0 && jv[u] > 0;
+    }
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < G; ++u) any |= alive[u];
+    while (any) {
+        int word[G];
+        // the G dependent reads first, so they are in flight together
+#pragma unroll
+        for (int u = 0; u < G; ++u) {
+            word[u] = 0;
+            if (alive[u]) {
+                const int r = min(max(iv[u], 0), nrows - 1);
+                const int c = min(max(jv[u], 0), ncols - 1);
+                word[u] = dirs[((size_t)r * pair_stride + g0 + u) * ncols + c];
+            }
+        }
+        any = false;
+#pragma unroll
+        for (int u = 0; u < G; ++u) {
+            if (!alive[u]) continue;
+            const int w = word[u], t = tv[u];
+            const int shift = t == 2 ? 2 : (t == 3 ? 4 : 0);
+            const bool run = t == 1;
+            const int k = run ? (w >> 8) & 255 : 0;
+            const int op = run ? (w >> 6) & 3 : (w >> shift) & 3;
+            const int di = run ? k + 1 : (t == 3 ? 1 : 0);
+            const int dj = run ? k + 1 : (t == 2 ? 1 : 0);
+            entries[(size_t)(g0 + u) * R_pad + rd[u]] = (op + 1) | (k << 2);
+            iv[u] -= di;
+            jv[u] -= dj;
+            tv[u] = op + 1;
+            ++rd[u];
+            alive[u] = iv[u] > 0 && jv[u] > 0 && rd[u] < R_pad;
+            any |= alive[u];
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+        if (g0 + u >= B) continue;
+        used[g0 + u] = rd[u];
+        // the terminator of the host replay (op == 0 ends the stream)
+        entries[(size_t)(g0 + u) * R_pad + min(rd[u], R_pad - 1)] = 0;
+    }
+}
+
+template <int G>
+int launch_group(const uint16_t* dirs, const int32_t* la, const int32_t* lb,
+                 const int32_t* t0, int32_t* entries, int32_t* used, int B,
+                 int pair_stride, int nrows, int ncols, int R_pad,
+                 cudaStream_t stream) {
+    const int threads = 128;
+    const int walkers = (B + G - 1) / G;
+    const int blocks = (walkers + threads - 1) / threads;
+    group_walk_kernel<G><<<blocks, threads, 0, stream>>>(
+        dirs, la, lb, t0, entries, used, B, pair_stride, nrows, ncols,
+        R_pad);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -144,6 +242,31 @@ int step_walk(const uint8_t* dirs, const int32_t* la, const int32_t* lb,
     step_walk_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         dirs, la, lb, t0, ops, used, B, nrows, ncols, max_steps, skew);
     return (int)cudaGetLastError();
+}
+
+// dirs: (nrows, pair_stride, ncols) uint16 dirs16+runs, row layout, with
+// pair_stride >= B; la/lb/t0: (B,) i32; entries: (B, R_pad) i32, zeroed by
+// the caller; used: (B,) i32; G pairs a thread, 1, 2, 4 or 8; R_pad >= 1.
+// Returns a cudaError_t code.
+int group_walk(const uint16_t* dirs, const int32_t* la, const int32_t* lb,
+               const int32_t* t0, int32_t* entries, int32_t* used, int B,
+               int pair_stride, int nrows, int ncols, int R_pad, int G,
+               void* stream) {
+    if (B == 0) return 0;
+    if (pair_stride < B || R_pad < 1 || nrows < 1 || ncols < 1)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (G) {
+        case 1: return launch_group<1>(dirs, la, lb, t0, entries, used, B,
+                                       pair_stride, nrows, ncols, R_pad, s);
+        case 2: return launch_group<2>(dirs, la, lb, t0, entries, used, B,
+                                       pair_stride, nrows, ncols, R_pad, s);
+        case 4: return launch_group<4>(dirs, la, lb, t0, entries, used, B,
+                                       pair_stride, nrows, ncols, R_pad, s);
+        case 8: return launch_group<8>(dirs, la, lb, t0, entries, used, B,
+                                       pair_stride, nrows, ncols, R_pad, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // extern "C"

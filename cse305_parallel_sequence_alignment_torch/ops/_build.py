@@ -32,7 +32,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 TSALIB = CSRC / "tsalib.cpp"
 KERNELS = ("rowcb", "walk", "longrow", "local", "diag", "banded",
-           "halostair")  # csrc/<name>.cu
+           "halostair", "rowscan2")  # csrc/<name>.cu
 # mode numbers of csrc/diag.cu and csrc/rowcb.cu
 MODES = {"global": 0, "semiglobal": 1, "overlap": 2}
 
@@ -122,3 +122,16 @@ def check_bucket(a, b, la, lb, st):
             raise ValueError("inputs must be contiguous")
     if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {a.device}")
+
+
+def resolve_device(device, who):
+    """``torch.device(device)``, "cuda" or "cpu"; raise if it names a card
+    and none is available (nothing falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who}: device {device!r}, 'cuda' or 'cpu'")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}(device={device!r}) needs a CUDA card and "
+                           f"none is available; pass device='cpu' for the "
+                           f"plain PyTorch versions")
+    return dev

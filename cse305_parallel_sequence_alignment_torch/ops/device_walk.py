@@ -11,6 +11,12 @@ function (:163-164): cell (i, j) at column ``j - i + band_lo``, clamped
 into the array. The kernel is ``csrc/walk.cu``; a CPU tensor goes to the
 plain PyTorch version.
 
+``group_walk_rle`` (K2') is the port of the Pallas walk ``pallas_walk_rle``
+(ops/pallas_walk.py:146, kernel ``_walk_group_kernel`` :41): the same
+stream, laid out per pair ``(B, R_pad)`` int32 with each pair's own round
+count, cut at R_pad rounds, one thread walking G pairs interleaved
+(``csrc/walk.cu`` ``group_walk_kernel<G>``).
+
 ``step_walk`` (K2s) is the port of the single-step ``_walk_core`` (same
 file, :35) in the layouts "row" and "skew", as ``_device_walk`` (:266)
 runs it: over uint8 dirs, the K1' row layout ``dirs[i, b, j]`` or the K5
@@ -79,10 +85,14 @@ def rle_walk_plain(dirs, la, lb, t0, max_rounds, band_lo=None):
     return ent.to(torch.int16).view(torch.uint16), used
 
 
-def _check(dirs, la, lb, t0, max_rounds):
+def _check(dirs, la, lb, t0, max_rounds, pairs=None):
+    """Raise on walk inputs the kernels do not take; ``pairs`` walked may
+    be fewer than the dirs' pair axis holds (K2')."""
     if dirs.dtype != torch.uint16 or dirs.dim() != 3:
         raise TypeError("dirs must be a (rows, B, cols) uint16 tensor")
-    B = dirs.shape[1]
+    B = dirs.shape[1] if pairs is None else pairs
+    if B > dirs.shape[1]:
+        raise ValueError(f"{B} pairs to walk, dirs hold {dirs.shape[1]}")
     for name, v in (("la", la), ("lb", lb), ("t0", t0)):
         if v.dtype != torch.int32 or tuple(v.shape) != (B,):
             raise ValueError(f"{name} must be ({B},) int32, got "
@@ -142,6 +152,89 @@ def rle_walk(dirs, la, lb, t0, max_rounds, band_lo=None):
 
 rle_walk.launches = 0
 rle_walk.band_launches = 0
+
+GROUPS = (1, 2, 4, 8)  # pairs a thread csrc/walk.cu's K2' is built for
+
+
+def group_walk_rle_plain(dirs, la, lb, t0, R_pad):
+    """Plain PyTorch K2': (entries (B, R_pad') int32, used (B,) int32),
+    R_pad' = R_pad rounded up to 128; see ``group_walk_rle``."""
+    nrows, _, ncols = dirs.shape
+    B = la.shape[0]
+    R = -(-R_pad // 128) * 128
+    dev = dirs.device
+    bidx = torch.arange(B, device=dev)
+    i, j, t = la.to(torch.int64), lb.to(torch.int64), t0.to(torch.int64)
+    rd = torch.zeros(B, dtype=torch.int64, device=dev)
+    alive = (i > 0) & (j > 0)
+    ent = torch.zeros((B, R), dtype=torch.int32, device=dev)
+    d16 = dirs.view(torch.int16)  # few PyTorch kernels take uint16
+    while bool(alive.any()):
+        word = d16[i.clamp(0, nrows - 1), bidx,
+                   j.clamp(0, ncols - 1)].to(torch.int64) & 0xFFFF
+        run = t == 1
+        shift = torch.where(t == 2, DIR_T2_SHIFT,
+                            torch.where(t == 3, DIR_T3_SHIFT, 0))
+        k = torch.where(run, (word >> 8) & 255, 0)
+        op = torch.where(run, (word >> 6) & 3, (word >> shift) & 3)
+        di = torch.where(run, k + 1, (t == 3).to(torch.int64))
+        dj = torch.where(run, k + 1, (t == 2).to(torch.int64))
+        live = bidx[alive]
+        ent[live, rd[alive]] = ((op + 1) | (k << 2))[alive].to(torch.int32)
+        i = torch.where(alive, i - di, i)
+        j = torch.where(alive, j - dj, j)
+        t = torch.where(alive, op + 1, t)
+        rd = torch.where(alive, rd + 1, rd)
+        alive = alive & (i > 0) & (j > 0) & (rd < R)
+    ent[bidx, rd.clamp(max=R - 1)] = 0
+    return ent, rd.to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _group_entry():
+    """ctypes entry point of csrc/walk.cu's grouped walk (K2')."""
+    fn = _build.cuda_library("walk").group_walk
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    return fn
+
+
+def group_walk_rle(dirs, la, lb, t0, R_pad, G=8):
+    """K2': the run-length walk of ``pallas_walk_rle``, per pair.
+
+    Walks pair b of row-layout dirs16+runs ``dirs`` (rows, Bd, cols),
+    Bd >= B = len(la), from (la, lb) in table t0 and returns (entries (B,
+    R_pad') int32, R_pad' = R_pad rounded up to 128, with pair b's
+    entries ``(op+1) | R << 2`` in row b, and used (B,) int32, its round
+    count). A walk stops on row 0 or column 0 or after R_pad' rounds; a 0
+    terminator then goes to ``entries[b, min(used, R_pad' - 1)]``, so a
+    walk cut at R_pad' loses its last entry, as in the TPU kernel. Past the
+    terminator the entries are 0 (the TPU kernel leaves its scratch
+    there). ``G`` (1, 2, 4 or 8) pairs a thread, interleaved; it changes no
+    result. Nothing is synchronised."""
+    _check(dirs, la, lb, t0, R_pad, pairs=la.shape[0])
+    if G not in GROUPS:
+        raise ValueError(f"G {G}: pick from {GROUPS}")
+    if dirs.device.type == "cpu":
+        return group_walk_rle_plain(dirs, la, lb, t0, R_pad)
+    nrows, Bd, ncols = dirs.shape
+    B = la.shape[0]
+    R = -(-R_pad // 128) * 128
+    dev = dirs.device
+    ent = torch.zeros((B, R), dtype=torch.int32, device=dev)
+    used = torch.empty((B,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _group_entry()(dirs.data_ptr(), la.data_ptr(), lb.data_ptr(),
+                             t0.data_ptr(), ent.data_ptr(), used.data_ptr(),
+                             B, Bd, nrows, ncols, R, G,
+                             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, f"group_walk(G={G})")
+    group_walk_rle.launches += 1
+    return ent, used
+
+
+group_walk_rle.launches = 0
 
 
 LAYOUTS = ("row", "skew")

@@ -1,6 +1,7 @@
 """Gotoh row-sweep fills: K1 (global), K4d and K4s (global under a
-substitution matrix), K3' (global score), K1' (global uint8 dirs), K10d
-(semi-global), K11d (overlap), and the re-export of K3.
+substitution matrix), K3' (global score), P-trim (K3' at uniform la), K1'
+(global uint8 dirs), K10d (semi-global), K11d (overlap), and the
+re-export of K3.
 
 K1 ``rowcb_fill`` is the port of the TPU kernel ``_rowcb_kernel``
 (cse305_parallel_sequence_alignment_tpu/ops/pallas_rowcb.py:126) with
@@ -52,6 +53,14 @@ omega in the free modes' order (``jgc = g*j - g - h`` first, as that
 kernel computes it), storing the uint8 codes ``d1 | d2 << 2 | d3 << 4``
 in a (m+1, B, n+1) tensor, or with ``with_runs`` the uint16 dirs16+runs
 word; at non-dyadic g, h its cells are not K1's.
+
+P-trim ``trim_rowscan_fill`` is the port of ``_trim_kernel`` of the TPU
+probe scripts/kern_rowscan2.py:42 (through ``trim_rowscan`` :96): K3' with
+start type -1 and every la = m (the width of ``a``), lb per pair, the
+finals read after row m instead of captured row by row, and omega in the
+free modes' order (what XLA runs for the probe's ``jgc = g*j - g - h``).
+Its finals equal those of K3'' (ops/rowscan2.py) and, at integral g, h,
+those of K3' too.
 
 K3 ``score_fill`` (global finals only) is the anti-diagonal kernel of
 ``ops/diag.py``, re-exported here under its old name.
@@ -284,6 +293,16 @@ def rowdirs_fill_plain(a, b, la, lb, st, params, with_runs=False):
                         runs=with_runs, free=True)
 
 
+def trim_rowscan_fill_plain(a, b, lb, params):
+    """Plain PyTorch P-trim: finals (B, 3), the sweep without dirs at
+    start type -1, every la = m, omega in the free modes' order."""
+    B, m = a.shape
+    la = torch.full((B,), m, dtype=torch.int32, device=a.device)
+    st = torch.full((B,), -1, dtype=torch.int32, device=a.device)
+    return _sweep_plain(a, b, la, lb, st, params, want_dirs=False,
+                        free=True)[1]
+
+
 def semiglobal_dirs_plain(a, b, la, lb, params):
     """Plain PyTorch K10d: (dirs (m+1, B, n+1) uint16, best (B, 4))."""
     return _sweep_plain(a, b, la, lb, torch.zeros_like(la), params,
@@ -326,8 +345,23 @@ def _entry():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _trim_entry():
+    """ctypes entry point of the P-trim sweep in csrc/rowcb.cu: 5
+    pointers, then B, m, n, C, threads, shared bytes, g, h, match,
+    mismatch, stream."""
+    fn = _build.cuda_library("rowcb").rowcb_trim_fill
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] + [ctypes.c_float] * 4
+                   + [ctypes.c_void_p])
+    return fn
+
+
 def _launch(a, b, la, lb, st, params, mode, table=None, kind=DIRS16,
-            free=False):
+            free=False, uniform=False):
+    """Launch the sweep; ``uniform`` is P-trim's (no dirs, start type -1,
+    every la = m: ``la`` and ``st`` are not read)."""
     B, m = a.shape
     n = b.shape[1]
     dev = a.device
@@ -345,6 +379,15 @@ def _launch(a, b, la, lb, st, params, mode, table=None, kind=DIRS16,
         dirs = torch.empty((m + 1, B, n + 1), device=dev, dtype=(
             torch.uint16 if kind == DIRS16 else torch.uint8))
     g, h, match, mismatch = params.astuple()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if uniform:
+        with torch.cuda.device(dev):
+            err = _trim_entry()(
+                a.data_ptr(), b.data_ptr(), lb.data_ptr(), out.data_ptr(),
+                scratch.data_ptr() if scratch is not None else None, B, m,
+                n, C, threads, smem, g, h, match, mismatch, stream)
+        _build.check(err, "rowcb_trim_fill")
+        return None, out
     with torch.cuda.device(dev):
         err = _entry()(
             a.data_ptr(), b.data_ptr(), la.data_ptr(), lb.data_ptr(),
@@ -353,7 +396,7 @@ def _launch(a, b, la, lb, st, params, mode, table=None, kind=DIRS16,
             scratch.data_ptr() if scratch is not None else None,
             _build.MODES[mode], B, m, n, C, threads, smem, g, h, match,
             mismatch, table.data_ptr() if table is not None else None, k1,
-            kind, int(free), torch.cuda.current_stream(dev).cuda_stream)
+            kind, int(free), stream)
     _build.check(err, f"rowcb_fill({mode}{', table' if k1 else ''}, dirs "
                       f"kind {kind}{', free order' if free else ''})")
     return dirs, out
@@ -443,6 +486,21 @@ def rowdirs_fill(a, b, la, lb, st, params, with_runs=False):
     return out
 
 
+def trim_rowscan_fill(a, b, lb, params):
+    """P-trim: finals (B, 3) of K3' at start type -1 with every la = m
+    (the width of ``a``), read after row m, omega in the free modes'
+    order; see the module docstring."""
+    B, m = a.shape
+    la = torch.full((B,), m, dtype=torch.int32, device=a.device)
+    _build.check_bucket(a, b, la, lb, la)
+    if a.device.type == "cpu":
+        return trim_rowscan_fill_plain(a, b, lb, params)
+    out = _launch(a, b, la, lb, la, params, "global", kind=NO_DIRS,
+                  free=True, uniform=True)[1]
+    trim_rowscan_fill.launches += 1
+    return out
+
+
 def semiglobal_dirs(a, b, la, lb, params):
     """K10d: semi-global dirs16+runs fill of a bucket; returns (dirs
     (m+1, B, n+1) uint16, best (B, 4) float32 [score, end_table, end_i,
@@ -474,6 +532,7 @@ submat_score_fill.launches = 0
 rowscan_score_fill.launches = 0
 rowdirs_fill.launches = 0
 rowdirs_fill.runs_launches = 0  # the with_runs form
+trim_rowscan_fill.launches = 0
 semiglobal_dirs.launches = 0
 overlap_dirs.launches = 0
 

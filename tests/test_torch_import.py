@@ -33,7 +33,9 @@ from cse305_parallel_sequence_alignment_torch.ops import (
     rowcb, traceback)
 from cse305_parallel_sequence_alignment_torch.parallel import (
     batch_shard, longseq, mesh, multihost, partition)
-from cse305_parallel_sequence_alignment_torch.ops import halostair
+from cse305_parallel_sequence_alignment_torch.ops import halostair, rowscan2
+from cse305_parallel_sequence_alignment_torch.probes import (
+    _common, ab_rowscan2, dual_stream, trim_rowscan, walk_ab)
 from cse305_parallel_sequence_alignment_torch.native import walker
 from cse305_parallel_sequence_alignment_torch.utils import (
     config, fasta, matrices)
@@ -92,6 +94,29 @@ def test_native_sources_are_the_ports_own():
 def test_banded_and_matrix_sources_are_the_ports_own(rel):
     """The banded, matrix and multi-device modules lie under the port and
     name neither jax nor the JAX package."""
+    from cse305_parallel_sequence_alignment_torch.ops import _build
+    path = ROOT / "cse305_parallel_sequence_alignment_torch" / rel
+    assert path.is_file()
+    text = path.read_text()
+    assert "import jax" not in text and "from jax" not in text
+    assert "cse305_parallel_sequence_alignment_tpu." not in text.replace(
+        "cse305_parallel_sequence_alignment_tpu/", "")
+    if rel.startswith("csrc/"):
+        assert path in _build.sources()
+
+
+@pytest.mark.parametrize("rel", ["ops/rowscan2.py", "csrc/rowscan2.cu",
+                                 "ops/rowcb.py", "ops/device_walk.py",
+                                 "csrc/rowcb.cu", "csrc/walk.cu",
+                                 "probes/__init__.py", "probes/_common.py",
+                                 "probes/ab_rowscan2.py",
+                                 "probes/trim_rowscan.py",
+                                 "probes/dual_stream.py",
+                                 "probes/walk_ab.py"])
+def test_score_fill_probe_sources_are_the_ports_own(rel):
+    """K3'', P-trim, P-dual and K2' (and their probes) lie under the port
+    and name neither jax nor the JAX package; their CUDA sources are
+    built."""
     from cse305_parallel_sequence_alignment_torch.ops import _build
     path = ROOT / "cse305_parallel_sequence_alignment_torch" / rel
     assert path.is_file()
