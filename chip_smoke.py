@@ -10,9 +10,12 @@ under a substitution matrix), the balanced partition of one long pair,
 the column-sharded long-pair pipeline, the ``BatchAligner`` backends,
 banded global alignment of the long pair, local (Smith-Waterman),
 semi-global and overlap alignment of many pairs, the data-sharded
-aligners, and the score-fill probes (K3'', P-trim, P-dual, K2'):
+aligners, the score-fill probes (K3'', P-trim, P-dual, K2') and the
+row-step attribution probes (P-perm, P-stripes, P-knock, P-ablate,
+P-lane0):
 
-1. card, torch and CUDA versions; the kernels' build time;
+1. card, torch and CUDA versions; the kernels' build time; ptxas's
+   registers, stack and spills of each row-step probe kernel;
 2. each kernel against its plain PyTorch version on the card, bit for
    bit, both timed with CUDA events: K1 dirs16+runs fill, K3
    anti-diagonal score fill and K2 run-length walk on 8 ragged pairs up
@@ -88,11 +91,18 @@ aligners, and the score-fill probes (K3'', P-trim, P-dual, K2'):
     (``[rowscan2-kernels]``); K2' at G = 1 and 8 against its plain
     version and K2 on the K1 dirs of step 4's pairs, in two chunks of 128
     (``[group-walk]``);
+6h. every instantiation of the row-step probe kernels (P-perm, P-stripes,
+    P-knock, P-ablate and its floors, P-lane0) against its plain twin,
+    bit for bit (NaN equal to NaN), on each probe's reduced bucket (its
+    first 16 pairs of 2 kb), then timed at the probe's full shape; the
+    kernels line takes one variant of each, with its twin timed at full
+    size (``[rowprobe-kernels]``);
 6g. the probes path, counters set to 0 again: each module of
     ``probes/`` (``ab_rowscan2``, ``trim_rowscan``, ``dual_stream``,
-    ``walk_ab``) at full size, one A/B round, its JSON lines on
-    ``[probes]`` lines; gates: every ``cells_equal`` and ``exact`` true,
-    every ``mismatched_pairs`` 0, the pipeline's finals finite;
+    ``walk_ab``, ``perm_layout``, ``stripes``, ``knockout``, ``ablate``,
+    ``lane0``) at full size, one round, its JSON lines on ``[probes]``
+    lines; gates: every ``cells_equal``, ``exact`` and ``equals_k3p``
+    true, every ``mismatched_pairs`` 0, the pipeline's finals finite;
 6c. K12d, K12s and K2 in band layout against their plain versions, bit
     for bit: 256 related pairs x 2 kb at bands (64, 64) and (256, 256), 8
     ragged pairs with every start type, a band too wide for shared
@@ -2599,6 +2609,78 @@ def phase_group_walk(report):
         torch.cuda.empty_cache()
 
 
+# per cell of csrc/rowprobe.cu's full row step (replica_kernel): pass 1
+# two maxima, the base compare, T1's add, T3's two subtractions and max,
+# max(T1, T3); pass 2 omega's multiply, add and subtraction, the running
+# max; pass 3 those four again, T2's multiply and subtraction
+RP_OPS = 18
+# the row-step probes' report keys: (probe module, the variant whose times
+# the kernels line takes, its operations a cell: chain K = 8 is 8 adds
+# and 8 maxima)
+ROWPROBES = {"P-perm": ("perm_layout", "contiguous_u4", RP_OPS),
+             "P-stripes": ("stripes", "B256_S1_u4", RP_OPS),
+             "P-knock": ("knockout", "full_u4", RP_OPS),
+             "P-ablate": ("ablate", "full", RP_OPS),
+             "P-floor": ("ablate", "chain_K8", 16),
+             "P-lane0": ("lane0", "A_u4", RP_OPS)}
+
+
+def max_err_nan(x, y):
+    """``max_err`` with NaN equal to NaN, and inf where only one is NaN."""
+    import torch
+    nx, ny = torch.isnan(x), torch.isnan(y)
+    if not torch.equal(nx, ny):
+        return float("inf")
+    return max_err(torch.where(nx, 0.0, x), torch.where(ny, 0.0, y))
+
+
+def phase_rowprobe_kernels(report):
+    """Every instantiation of csrc/rowprobe.cu against its plain twin on the
+    card, bit for bit (NaN equal to NaN), on each probe's reduced bucket
+    (its first 16 pairs, 2 kb, every row), then timed at the probe's full
+    shape (mean of 3 after a warm-up); the kernels line takes the variant
+    ``ROWPROBES`` names for each key, its plain twin timed once at full
+    size."""
+    import importlib
+
+    import torch
+
+    done = {}
+    for module in dict.fromkeys(m for m, _, _ in ROWPROBES.values()):
+        mod = importlib.import_module(f"{PKG}.probes.{module}")
+        t0 = time.perf_counter()
+        rows, _, variants, twins = mod.cases(torch.device("cuda"))
+        want, res = {}, {}
+        for name, v in variants.items():
+            if v.twin not in want:
+                want[v.twin] = twins[v.twin]()
+            err = max_err_nan(v.reduced(), want[v.twin])
+            _, ms = timed(v.run, 3)
+            res[name] = (err, ms)
+            done[(module, name)] = v, ms
+            floor = name.startswith(("chain", "indep"))
+            rep = report[next(k for k, (md, _, _) in ROWPROBES.items()
+                              if md == module and (k == "P-floor") == floor)]
+            rep["max_abs_err"] = max(rep["max_abs_err"], err)
+        del want
+        print(f"[rowprobe-kernels] {module} ({rows} rows): " + "; ".join(
+            f"{n} err {e} {ms:.3f} ms" for n, (e, ms) in res.items())
+            + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+        bad = {n: e for n, (e, _) in res.items() if e}
+        if bad:
+            raise RuntimeError(f"row-step probe kernels of {module} disagree "
+                               f"with their twins: {bad}")
+    for key, (module, name, ops) in ROWPROBES.items():
+        v, ms = done[(module, name)]
+        _, pms = timed(v.plain, 1, warm=False)
+        rep = report[key]
+        rep["ms"], rep["plain_ms"] = ms, pms
+        rep["bound_ms"], rep["bound_by"] = bound(ops * v.cells, v.nbytes)
+        print(f"[rowprobe-kernels] {key} ({module} {name}): {ms:.3f} ms, "
+              f"bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}), plain "
+              f"{pms:.1f} ms", flush=True)
+
+
 def phase_probes(out):
     """Each probe module once at full size, one A/B round, as a user runs
     it (its ``main``); the lines are kept in ``out`` and printed on
@@ -2628,6 +2710,7 @@ def check_probes(out):
     for name, rows in out.items():
         for r in rows:
             if r.get("cells_equal") is False or r.get("exact") is False or \
+                    r.get("equals_k3p") is False or \
                     r.get("mismatched_pairs", 0) or \
                     r.get("finite") is False:
                 raise RuntimeError(f"probe {name} found a disagreement: {r}")
@@ -2659,6 +2742,7 @@ def main():
         longrow,
         longstair,
         rowcb,
+        rowprobe,
         rowscan2,
     )
 
@@ -2666,14 +2750,25 @@ def main():
     print(f"[card] {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
+
+    def build(load, *args):
+        load(*args)
+        return time.perf_counter() - t0
+
     with ThreadPoolExecutor() as pool:  # one compiler process per source
-        builds = [pool.submit(_build.cuda_library, k)
-                  for k in _build.KERNELS]
-        builds.append(pool.submit(_build.host_library))
-        for b in builds:
-            b.result()
-    print(f"[build] kernels {_build.KERNELS} and host library built and "
-          f"loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+        builds = {k: pool.submit(build, _build.cuda_library, k)
+                  for k in _build.KERNELS}
+        builds["tsalib"] = pool.submit(build, _build.host_library)
+        ptxas = pool.submit(_build.resource_usage, "rowprobe")
+        done = {k: b.result() for k, b in builds.items()}
+        print(f"[build] kernels {_build.KERNELS} and host library built and "
+              f"loaded in {time.perf_counter() - t0:.1f} s (each done at: "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in done.items()) + ")",
+              flush=True)
+        for kernel, (regs, stack, st, ld) in sorted(ptxas.result().items()):
+            print(f"[ptxas] rowprobe.cu {kernel}: {regs} registers, {stack} "
+                  f"bytes stack, {st}/{ld} bytes spilled (stores/loads)",
+                  flush=True)
 
     src = f"{PKG}/csrc"
     report = {
@@ -2812,6 +2907,35 @@ def main():
                        route="cuda", source=f"{src}/rowscan2.cu",
                        replaces="scripts/probes/dual_halostair_r4.py:68",
                        fn=rowscan2.dual_rowscan2_fill),
+        "P-perm": dict(name="perm_finals (P-perm K3' finals, contiguous or "
+                            "strided layout)", route="cuda",
+                       source=f"{src}/rowprobe.cu",
+                       replaces="scripts/probes/attrib3_r5.py:108",
+                       fn=rowprobe.perm_finals),
+        "P-stripes": dict(name="stripes_fill (P-stripes S pairs a CTA)",
+                          route="cuda", source=f"{src}/rowprobe.cu",
+                          replaces="scripts/kern_stripes.py:33",
+                          fn=rowprobe.stripes_fill),
+        "P-knock": dict(name="knock_fill (P-knock K3' step, pieces knocked "
+                             "out)", route="cuda",
+                        source=f"{src}/rowprobe.cu",
+                        replaces="scripts/kern_attrib.py:37",
+                        fn=rowprobe.knock_fill),
+        "P-ablate": dict(name="ablate_finals (P-ablate K3' step, a part "
+                              "ablated)", route="cuda",
+                         source=f"{src}/rowprobe.cu",
+                         replaces="scripts/probes/attrib_r5.py:65",
+                         fn=rowprobe.ablate_finals),
+        "P-floor": dict(name="ablate_finals chain/indep (P-ablate raw "
+                             "max-chain floors)", route="cuda",
+                        source=f"{src}/rowprobe.cu",
+                        replaces="scripts/probes/attrib_r5.py:65",
+                        fn=rowprobe.ablate_finals,
+                        counter="floor_launches"),
+        "P-lane0": dict(name="lane0_fill (P-lane0 column-0 T3 variants)",
+                        route="cuda", source=f"{src}/rowprobe.cu",
+                        replaces="scripts/kern_scalar.py:37",
+                        fn=rowprobe.lane0_fill),
     }
     for rep in report.values():
         # no single PyTorch call computes a Gotoh or SW fill or walk
@@ -2879,9 +3003,11 @@ def main():
     stamp("rowscan2 kernels")
     phase_group_walk(report)
     stamp("group walk")
+    phase_rowprobe_kernels(report)
+    stamp("rowprobe kernels")
     probe_out = {}
     run_path("probes", lambda: phase_probes(probe_out),
-             ("K3''", "K2'", "P-trim", "P-dual"))
+             ("K3''", "K2'", "P-trim", "P-dual") + tuple(ROWPROBES))
     check_probes(probe_out)
     stamp("probes")
     phase_banded_kernels(report, runs)

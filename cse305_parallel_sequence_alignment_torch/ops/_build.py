@@ -22,6 +22,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -32,7 +33,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 TSALIB = CSRC / "tsalib.cpp"
 KERNELS = ("rowcb", "walk", "longrow", "local", "diag", "banded",
-           "halostair", "rowscan2")  # csrc/<name>.cu
+           "halostair", "rowscan2", "rowprobe")  # csrc/<name>.cu
 # mode numbers of csrc/diag.cu and csrc/rowcb.cu
 MODES = {"global": 0, "semiglobal": 1, "overlap": 2}
 
@@ -93,6 +94,57 @@ def host_library():
         raise RuntimeError("g++ not found: the host replay library is "
                            "built from tsalib.cpp at first use")
     return _build("tsa", gxx, GXX_FLAGS, TSALIB)
+
+
+def _kernel_name(mangled):
+    """``name<a,b,...>`` for a mangled template kernel whose arguments are
+    integers or booleans (as 0/1); else the mangled name."""
+    m = re.search(r"I((?:L[ib]\d+E)+)E", mangled)
+    if m:
+        head = mangled[:m.start()]
+        for n in range(1, len(head)):
+            if head[:-n].endswith(str(n)) and head[-n:].isidentifier():
+                args = re.findall(r"L[ib](\d+)E", m.group(1))
+                return f"{head[-n:]}<{','.join(args)}>"
+    return mangled
+
+
+def parse_ptxas(report):
+    """{kernel: (registers, stack bytes, spill stores, spill loads)} from
+    ptxas's ``-v`` report, kernels named by ``_kernel_name``."""
+    usage, kernel = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            kernel = _kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and kernel:
+            usage[kernel] = [0] + [int(x) for x in m.groups()]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel in usage:
+            usage[kernel][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in usage.items()}
+
+
+def resource_usage(name):
+    """ptxas's registers, stack and spills of each kernel of
+    ``csrc/<name>.cu`` under the build's flags (``parse_ptxas``), from a
+    compile into a temporary object that nothing loads."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    obj = BUILD / f".{name}.{os.getpid()}.ptxas.o"
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *flags, "-c", "-Xptxas", "-v", "-o", str(obj),
+             str(CSRC / f"{name}.cu")], capture_output=True, text=True)
+    finally:
+        obj.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"ptxas report of {name}.cu failed:\n"
+                           f"{proc.stderr[-4000:]}")
+    return parse_ptxas(proc.stderr)
 
 
 def check(err, what):

@@ -33,9 +33,12 @@ from cse305_parallel_sequence_alignment_torch.ops import (
     rowcb, traceback)
 from cse305_parallel_sequence_alignment_torch.parallel import (
     batch_shard, longseq, mesh, multihost, partition)
-from cse305_parallel_sequence_alignment_torch.ops import halostair, rowscan2
+from cse305_parallel_sequence_alignment_torch.ops import (
+    halostair, rowprobe, rowscan2)
 from cse305_parallel_sequence_alignment_torch.probes import (
     _common, ab_rowscan2, dual_stream, trim_rowscan, walk_ab)
+from cse305_parallel_sequence_alignment_torch.probes import (
+    ablate, knockout, lane0, perm_layout, stripes)
 from cse305_parallel_sequence_alignment_torch.native import walker
 from cse305_parallel_sequence_alignment_torch.utils import (
     config, fasta, matrices)
@@ -112,11 +115,16 @@ def test_banded_and_matrix_sources_are_the_ports_own(rel):
                                  "probes/ab_rowscan2.py",
                                  "probes/trim_rowscan.py",
                                  "probes/dual_stream.py",
-                                 "probes/walk_ab.py"])
+                                 "probes/walk_ab.py", "ops/rowprobe.py",
+                                 "csrc/rowprobe.cu",
+                                 "probes/perm_layout.py",
+                                 "probes/stripes.py",
+                                 "probes/knockout.py", "probes/ablate.py",
+                                 "probes/lane0.py"])
 def test_score_fill_probe_sources_are_the_ports_own(rel):
-    """K3'', P-trim, P-dual and K2' (and their probes) lie under the port
-    and name neither jax nor the JAX package; their CUDA sources are
-    built."""
+    """K3'', P-trim, P-dual, K2' and the row-step probes (and their probe
+    modules) lie under the port and name neither jax nor the JAX package;
+    their CUDA sources are built."""
     from cse305_parallel_sequence_alignment_torch.ops import _build
     path = ROOT / "cse305_parallel_sequence_alignment_torch" / rel
     assert path.is_file()

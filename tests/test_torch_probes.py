@@ -14,11 +14,15 @@ from cse305_parallel_sequence_alignment_torch.probes import MODULES
 
 # the result flags each probe's lines carry
 FLAGS = {"ab_rowscan2": "cells_equal", "trim_rowscan": "exact",
-         "dual_stream": "cells_equal", "walk_ab": "mismatched_pairs"}
+         "dual_stream": "cells_equal", "walk_ab": "mismatched_pairs",
+         "perm_layout": "exact", "stripes": "exact", "knockout": "exact",
+         "ablate": "exact", "lane0": "exact"}
 KINDS = {"ab_rowscan2": {"check", "round", "columns"},
          "trim_rowscan": {"round"},
          "dual_stream": {"dual", "halostair_d1"},
-         "walk_ab": {"fill_dirs16", "walk", "fused_phases", "align_batch"}}
+         "walk_ab": {"fill_dirs16", "walk", "fused_phases", "align_batch"},
+         "perm_layout": {"round"}, "stripes": {"round"},
+         "knockout": {"round"}, "ablate": {"round"}, "lane0": {"round"}}
 
 
 def probe(name):
