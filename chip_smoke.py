@@ -10,12 +10,14 @@ under a substitution matrix), the balanced partition of one long pair,
 the column-sharded long-pair pipeline, the ``BatchAligner`` backends,
 banded global alignment of the long pair, local (Smith-Waterman),
 semi-global and overlap alignment of many pairs, the data-sharded
-aligners, the score-fill probes (K3'', P-trim, P-dual, K2') and the
+aligners, the score-fill probes (K3'', P-trim, P-dual, K2'), the
 row-step attribution probes (P-perm, P-stripes, P-knock, P-ablate,
-P-lane0):
+P-lane0, P-sweep, P-attrib2) and the op-cost micro-probes (P-micro,
+P-micro2):
 
 1. card, torch and CUDA versions; the kernels' build time; ptxas's
-   registers, stack and spills of each row-step probe kernel;
+   registers, stack and spills of each row-step probe kernel and each
+   micro-probe kernel;
 2. each kernel against its plain PyTorch version on the card, bit for
    bit, both timed with CUDA events: K1 dirs16+runs fill, K3
    anti-diagonal score fill and K2 run-length walk on 8 ragged pairs up
@@ -96,13 +98,19 @@ P-lane0):
     bit for bit (NaN equal to NaN), on each probe's reduced bucket (its
     first 16 pairs of 2 kb), then timed at the probe's full shape; the
     kernels line takes one variant of each, with its twin timed at full
-    size (``[rowprobe-kernels]``);
+    size (``[rowprobe-kernels]``); likewise P-sweep's 36 cases (B x W x C
+    x U) and P-attrib2's modes and floors, with K3 (``[rowprobe2-kernels]``);
+6i. every case of the micro-probes (16 op classes of P-micro, 15 cases
+    of P-micro2) against its plain twin, bit for bit, at 64 steps on 16
+    lines, then timed at the full shape and the lower step count
+    (``[micro-kernels]``);
 6g. the probes path, counters set to 0 again: each module of
     ``probes/`` (``ab_rowscan2``, ``trim_rowscan``, ``dual_stream``,
     ``walk_ab``, ``perm_layout``, ``stripes``, ``knockout``, ``ablate``,
-    ``lane0``) at full size, one round, its JSON lines on ``[probes]``
-    lines; gates: every ``cells_equal``, ``exact`` and ``equals_k3p``
-    true, every ``mismatched_pairs`` 0, the pipeline's finals finite;
+    ``lane0``, ``sweep``, ``attrib2``, ``micro``) at full size, one round,
+    its JSON lines on ``[probes]`` lines; gates: every ``cells_equal``,
+    ``exact`` and ``equals_k3p`` true, every ``mismatched_pairs`` 0, the
+    pipeline's finals finite;
 6c. K12d, K12s and K2 in band layout against their plain versions, bit
     for bit: 256 related pairs x 2 kb at bands (64, 64) and (256, 256), 8
     ragged pairs with every start type, a band too wide for shared
@@ -2616,13 +2624,24 @@ def phase_group_walk(report):
 RP_OPS = 18
 # the row-step probes' report keys: (probe module, the variant whose times
 # the kernels line takes, its operations a cell: chain K = 8 is 8 adds
-# and 8 maxima)
+# and 8 maxima, live K = 16 over 4 arrays 16 adds, 16 maxima and the
+# fourth array's add)
 ROWPROBES = {"P-perm": ("perm_layout", "contiguous_u4", RP_OPS),
              "P-stripes": ("stripes", "B256_S1_u4", RP_OPS),
              "P-knock": ("knockout", "full_u4", RP_OPS),
              "P-ablate": ("ablate", "full", RP_OPS),
              "P-floor": ("ablate", "chain_K8", 16),
              "P-lane0": ("lane0", "A_u4", RP_OPS)}
+ROWPROBES2 = {"P-sweep": ("sweep", "B256_W2176_C16_u4", RP_OPS),
+              "P-attrib2": ("attrib2", "full_b32", RP_OPS),
+              "P-floor2": ("attrib2", "live_K16_L4", 33)}
+FLOOR_KEYS = ("P-floor", "P-floor2")
+FLOOR_NAMES = ("chain", "indep", "live")  # the floors' variant names
+# the micro-probes' report keys: (probe, the case whose times the kernels
+# line takes, its operations an element a step: 12 adds and the halving;
+# 16 chains of a multiply, an add and a max, then a multiply and a max)
+MICROS = {"P-micro": ("micro", "add x+y", 13),
+          "P-micro2": ("micro2", "elementwise chain (256,2176) 2op", 50)}
 
 
 def max_err_nan(x, y):
@@ -2634,19 +2653,19 @@ def max_err_nan(x, y):
     return max_err(torch.where(nx, 0.0, x), torch.where(ny, 0.0, y))
 
 
-def phase_rowprobe_kernels(report):
-    """Every instantiation of csrc/rowprobe.cu against its plain twin on the
-    card, bit for bit (NaN equal to NaN), on each probe's reduced bucket
-    (its first 16 pairs, 2 kb, every row), then timed at the probe's full
-    shape (mean of 3 after a warm-up); the kernels line takes the variant
-    ``ROWPROBES`` names for each key, its plain twin timed once at full
-    size."""
+def phase_rowprobe_kernels(report, table=ROWPROBES, tag="rowprobe-kernels"):
+    """Every instantiation of csrc/rowprobe.cu that the probe modules of
+    ``table`` run against its plain twin on the card, bit for bit (NaN
+    equal to NaN), on each probe's reduced bucket (its first 16 pairs,
+    every row), then timed at the probe's full shape (mean of 3 after a
+    warm-up); the kernels line takes the variant ``table`` names for each
+    key, its plain twin timed once at full size."""
     import importlib
 
     import torch
 
     done = {}
-    for module in dict.fromkeys(m for m, _, _ in ROWPROBES.values()):
+    for module in dict.fromkeys(m for m, _, _ in table.values()):
         mod = importlib.import_module(f"{PKG}.probes.{module}")
         t0 = time.perf_counter()
         rows, _, variants, twins = mod.cases(torch.device("cuda"))
@@ -2658,27 +2677,72 @@ def phase_rowprobe_kernels(report):
             _, ms = timed(v.run, 3)
             res[name] = (err, ms)
             done[(module, name)] = v, ms
-            floor = name.startswith(("chain", "indep"))
-            rep = report[next(k for k, (md, _, _) in ROWPROBES.items()
-                              if md == module and (k == "P-floor") == floor)]
+            floor = name.startswith(FLOOR_NAMES)
+            rep = report[next(k for k, (md, _, _) in table.items()
+                              if md == module and (k in FLOOR_KEYS) == floor)]
             rep["max_abs_err"] = max(rep["max_abs_err"], err)
         del want
-        print(f"[rowprobe-kernels] {module} ({rows} rows): " + "; ".join(
+        print(f"[{tag}] {module} ({rows} rows): " + "; ".join(
             f"{n} err {e} {ms:.3f} ms" for n, (e, ms) in res.items())
             + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
         bad = {n: e for n, (e, _) in res.items() if e}
         if bad:
             raise RuntimeError(f"row-step probe kernels of {module} disagree "
                                f"with their twins: {bad}")
-    for key, (module, name, ops) in ROWPROBES.items():
+    for key, (module, name, ops) in table.items():
         v, ms = done[(module, name)]
         _, pms = timed(v.plain, 1, warm=False)
         rep = report[key]
         rep["ms"], rep["plain_ms"] = ms, pms
         rep["bound_ms"], rep["bound_by"] = bound(ops * v.cells, v.nbytes)
-        print(f"[rowprobe-kernels] {key} ({module} {name}): {ms:.3f} ms, "
+        print(f"[{tag}] {key} ({module} {name}): {ms:.3f} ms, "
               f"bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}), plain "
               f"{pms:.1f} ms", flush=True)
+
+
+def phase_micro_kernels(report):
+    """Every case of csrc/micro.cu's two probes against its plain twin on
+    the card, bit for bit, at 64 steps on the first 16 lines of its
+    shape, then timed at the full shape and the scripts' lower step count
+    (mean of 3 after a warm-up); the kernels line takes the case
+    ``MICROS`` names, its twin timed once at that size."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.probes import micro as pm
+
+    t0 = time.perf_counter()
+    res, done = {}, {}
+    for c in pm.cases(torch.device("cuda")):
+        rx, ry = pm.reduced(c)
+        args = (c.op, c.ops, pm.CHECK_STEPS, c.shift, c.axis)
+        err = max_err_nan(c.fn(rx, ry, *args), c.plain(rx, ry, *args))
+        full = (c.x, c.y, c.op, c.ops, c.steps[0], c.shift, c.axis)
+        _, ms = timed(lambda: c.fn(*full), 3)
+        res[(c.which, c.name)] = (err, ms)
+        done[(c.which, c.name)] = (c, full, ms)
+        key = next(k for k, (w, _, _) in MICROS.items() if w == c.which)
+        report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
+    for which in ("micro", "micro2"):
+        print(f"[micro-kernels] {which}: " + "; ".join(
+            f"{n} err {e} {ms:.3f} ms" for (w, n), (e, ms) in res.items()
+            if w == which) + f" ({time.perf_counter() - t0:.1f} s)",
+            flush=True)
+    bad = {n: e for n, (e, _) in res.items() if e}
+    if bad:
+        raise RuntimeError(f"micro-probe kernels disagree with their twins: "
+                           f"{bad}")
+    for key, (which, name, ops) in MICROS.items():
+        c, full, ms = done[(which, name)]
+        _, pms = timed(lambda: c.plain(*full), 1, warm=False)
+        rep = report[key]
+        rep["ms"], rep["plain_ms"] = ms, pms
+        R, W = c.x.shape
+        out = R * W * 4 if which == "micro" else 4
+        rep["bound_ms"], rep["bound_by"] = bound(
+            ops * c.steps[0] * R * W, 2 * R * W * 4 + out)
+        print(f"[micro-kernels] {key} ({name}, {c.steps[0]} steps): "
+              f"{ms:.3f} ms, bound {rep['bound_ms']:.4f} ms "
+              f"({rep['bound_by']}), plain {pms:.1f} ms", flush=True)
 
 
 def phase_probes(out):
@@ -2741,6 +2805,7 @@ def main():
         local,
         longrow,
         longstair,
+        micro,
         rowcb,
         rowprobe,
         rowscan2,
@@ -2759,16 +2824,19 @@ def main():
         builds = {k: pool.submit(build, _build.cuda_library, k)
                   for k in _build.KERNELS}
         builds["tsalib"] = pool.submit(build, _build.host_library)
-        ptxas = pool.submit(_build.resource_usage, "rowprobe")
+        ptxas = {k: pool.submit(_build.resource_usage, k)
+                 for k in ("rowprobe", "micro")}
         done = {k: b.result() for k, b in builds.items()}
         print(f"[build] kernels {_build.KERNELS} and host library built and "
               f"loaded in {time.perf_counter() - t0:.1f} s (each done at: "
               + ", ".join(f"{k} {v:.1f} s" for k, v in done.items()) + ")",
               flush=True)
-        for kernel, (regs, stack, st, ld) in sorted(ptxas.result().items()):
-            print(f"[ptxas] rowprobe.cu {kernel}: {regs} registers, {stack} "
-                  f"bytes stack, {st}/{ld} bytes spilled (stores/loads)",
-                  flush=True)
+        for src_name, usage in ptxas.items():
+            for kernel, (regs, stack, st, ld) in sorted(
+                    usage.result().items()):
+                print(f"[ptxas] {src_name}.cu {kernel}: {regs} registers, "
+                      f"{stack} bytes stack, {st}/{ld} bytes spilled "
+                      f"(stores/loads)", flush=True)
 
     src = f"{PKG}/csrc"
     report = {
@@ -2936,6 +3004,32 @@ def main():
                         route="cuda", source=f"{src}/rowprobe.cu",
                         replaces="scripts/kern_scalar.py:37",
                         fn=rowprobe.lane0_fill),
+        "P-sweep": dict(name="sweep_fill (P-sweep row step, C columns a "
+                             "thread)", route="cuda",
+                        source=f"{src}/rowprobe.cu",
+                        replaces="scripts/kern_sweep.py:76",
+                        fn=rowprobe.sweep_fill),
+        "P-attrib2": dict(name="ablate_finals attrib2 modes (P-attrib2 "
+                               "prefix parts, exchanges, two CTAs an SM)",
+                          route="cuda", source=f"{src}/rowprobe.cu",
+                          replaces="scripts/probes/attrib2_r5.py:190",
+                          fn=rowprobe.ablate_finals,
+                          counter="attrib2_launches"),
+        "P-floor2": dict(name="ablate_finals live/chain_i32/chain_i16 "
+                              "(P-attrib2 live-array and integer floors)",
+                         route="cuda", source=f"{src}/rowprobe.cu",
+                         replaces="scripts/probes/attrib2_r5.py:190",
+                         fn=rowprobe.ablate_finals,
+                         counter="floor2_launches"),
+        "P-micro": dict(name="micro_loop (P-micro op-cost loop)",
+                        route="cuda", source=f"{src}/micro.cu",
+                        replaces="scripts/kern_probe.py:45",
+                        fn=micro.micro_loop),
+        "P-micro2": dict(name="micro_loop_max (P-micro2 op-cost loop, "
+                              "full max)", route="cuda",
+                         source=f"{src}/micro.cu",
+                         replaces="scripts/kern_probe2.py:40",
+                         fn=micro.micro_loop_max),
     }
     for rep in report.values():
         # no single PyTorch call computes a Gotoh or SW fill or walk
@@ -3005,9 +3099,14 @@ def main():
     stamp("group walk")
     phase_rowprobe_kernels(report)
     stamp("rowprobe kernels")
+    phase_rowprobe_kernels(report, ROWPROBES2, "rowprobe2-kernels")
+    stamp("rowprobe2 kernels")
+    phase_micro_kernels(report)
+    stamp("micro kernels")
     probe_out = {}
     run_path("probes", lambda: phase_probes(probe_out),
-             ("K3''", "K2'", "P-trim", "P-dual") + tuple(ROWPROBES))
+             ("K3''", "K2'", "P-trim", "P-dual") + tuple(ROWPROBES)
+             + tuple(ROWPROBES2) + tuple(MICROS))
     check_probes(probe_out)
     stamp("probes")
     phase_banded_kernels(report, runs)

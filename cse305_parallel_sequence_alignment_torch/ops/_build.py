@@ -33,7 +33,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 TSALIB = CSRC / "tsalib.cpp"
 KERNELS = ("rowcb", "walk", "longrow", "local", "diag", "banded",
-           "halostair", "rowscan2", "rowprobe")  # csrc/<name>.cu
+           "halostair", "rowscan2", "rowprobe", "micro")  # csrc/<name>.cu
 # mode numbers of csrc/diag.cu and csrc/rowcb.cu
 MODES = {"global": 0, "semiglobal": 1, "overlap": 2}
 

@@ -1,6 +1,7 @@
-"""Row-step attribution probes: P-perm, P-stripes, P-knock, P-ablate and
-P-lane0, the K3' row step (ops/rowcb.py ``rowscan_score_fill``) with its
-parts laid out, interleaved, knocked out or varied, to time each part.
+"""Row-step attribution probes: P-perm, P-stripes, P-knock, P-ablate,
+P-lane0, P-sweep and P-attrib2, the K3' row step (ops/rowcb.py
+``rowscan_score_fill``) with its parts laid out, interleaved, knocked out
+or varied, to time each part.
 
 Each is the port of a TPU probe kernel that ran a variant of
 ``_rowscan_kernel`` (cse305_parallel_sequence_alignment_tpu/ops/
@@ -24,7 +25,19 @@ pallas_fill.py:750) through ``pallas_call``:
   ``ABLATE``'s modes (row_step :83-116), or the raw floors ``chain`` and
   ``indep`` at K wide operations a row (:118-137);
 - ``lane0_fill`` (P-lane0), ``_kernel`` of scripts/kern_scalar.py:37
-  (through ``run_case`` :95): column 0's T3 as the variants A to E.
+  (through ``run_case`` :95): column 0's T3 as the variants A to E;
+- ``sweep_fill`` (P-sweep), ``_kernel`` of scripts/kern_sweep.py:32
+  (through ``run_case`` :70): the row step with A's character fixed at 65
+  (``charcol``) over every column of ``b_ext``, C columns a thread;
+- ``ablate_finals`` under ``ATTRIB2``'s modes and ``FLOORS2``'s floors
+  (P-attrib2 and its floors), ``variant_kernel`` of scripts/probes/
+  attrib2_r5.py:100 (through ``run_variant`` :190): the prefix max's
+  unaligned (``pm_unaligned``, the ``prefix7`` window) or aligned
+  (``pm_aligned``) strides alone, the scan or the halo wholly through
+  shared memory (``pm_roll``, ``shift_roll``: the TPU's ``pltpu.roll``
+  lowerings of the full step), the full step at two CTAs an SM
+  (``full_b32``), and the floors ``live`` (K dependent operations over L
+  live arrays), ``chain_i32`` and ``chain_i16``.
 
 The fills return the last row's max(max(T1, T2), T3), (B, W) float32, of
 every pair; the finals are (T1, T2, T3) at (m, lb), (B, 3). The TPU
@@ -46,8 +59,8 @@ propagates, as XLA's does.
 
 The kernels are ``csrc/rowprobe.cu`` (``replica_kernel`` and
 ``floor_kernel``), built for the instantiations in ``INSTANCES`` and
-``FLOORS``. A CPU tensor goes to the plain PyTorch twin beside each
-wrapper; a CUDA tensor launches the kernel or raises.
+``FLOOR_INSTANCES``. A CPU tensor goes to the plain PyTorch twin beside
+each wrapper; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -67,11 +80,13 @@ from cse305_parallel_sequence_alignment_torch.ops.rowcb import _shift
 
 # the probes' parameters (hard-coded in the TPU scripts)
 PROBE_PARAMS = ScoringParams(g=1.0, h=2.0, match=1.0, mismatch=0.0)
-ROWS = 2048  # M of scripts/kern_stripes.py and scripts/kern_scalar.py
-COLUMNS = 4  # columns a thread in csrc/rowprobe.cu
+ROWS = 2048  # M of scripts/kern_stripes.py, kern_scalar.py, kern_sweep.py
+COLUMNS = 4  # columns a thread in csrc/rowprobe.cu (P-sweep: also 8, 16)
 # csrc/rowprobe.cu's KNOCK bits and LANE0 forms
 KNOCK = {"charcol": 1, "bcast": 2, "shift1": 4, "prefix": 8, "prefix7": 16,
-         "nochar": 32, "nofb": 64, "not3": 128, "noboundary": 256}
+         "nochar": 32, "nofb": 64, "not3": 128, "noboundary": 256,
+         "aligned": 512, "smemscan": 1024, "smemhalo": 2048,
+         "twocta": 4096}
 LANE0 = {"K3P": 0, "A": 1, "B": 2, "C": 3, "D": 4, "E": 5}
 LAYOUTS = {"contiguous": 0, "strided": 1}
 # P-ablate's row_step modes as knock-outs (attrib_r5.py:83-116)
@@ -81,6 +96,19 @@ ABLATE = {"full": (), "nochar": ("nochar",), "noshift": ("shift1",),
           "noboundary": ("noboundary",)}
 # P-ablate's raw floors: K for each (attrib_r5.py:118-137)
 FLOORS = {"chain": (4, 8, 16, 34), "indep": (8, 16, 32)}
+# P-attrib2's modes as knock-outs and variants (attrib2_r5.py:50-86,
+# :234-239): pm_unaligned is prefix7's window, pm_roll and shift_roll move
+# the scan's and the halo's values through shared memory, full_b32 is the
+# full step at two CTAs an SM
+ATTRIB2 = {"full": (), "pm_roll": ("smemscan",),
+           "shift_roll": ("smemhalo",), "pm_unaligned": ("prefix7",),
+           "pm_aligned": ("aligned",), "full_b32": ("twocta",)}
+# P-attrib2's floors: (K, L) for each (attrib2_r5.py:131-166, :240-247)
+FLOORS2 = {"live": ((16, 2), (16, 4), (16, 6), (16, 8)),
+           "chain_i32": ((16, 0),), "chain_i16": ((16, 0),)}
+# csrc/rowprobe.cu's floor_kernel MODEs
+FLOOR_MODES = {"indep": 0, "chain": 1, "live": 2, "chain_i32": 3,
+               "chain_i16": 4}
 
 
 def knock_bits(knock):
@@ -94,20 +122,28 @@ def knock_bits(knock):
 
 
 # the replica_kernel instantiations of csrc/rowprobe.cu: (knock bits,
-# lane0, layout, pairs a CTA, unroll); tests/test_torch_rowprobe.py holds
-# this list equal to the source's
+# lane0, layout, pairs a CTA, unroll, columns a thread);
+# tests/test_torch_rowprobe.py holds this list equal to the source's
 INSTANCES = frozenset(
-    [(0, 0, lay, 1, u) for lay in (0, 1) for u in (4, 8)]            # P-perm
-    + [(0, 1, 0, s, u) for s, u in ((1, 4), (2, 4), (4, 4), (8, 4),
-                                    (4, 2), (4, 8))]                  # stripes
-    + [(0, 0, 0, 1, 16)]
-    + [(knock_bits(k), 0, 0, 1, 4) for k in (
+    [(0, 0, lay, 1, u, 4) for lay in (0, 1) for u in (4, 8)]         # P-perm
+    + [(0, 1, 0, s, u, 4) for s, u in ((1, 4), (2, 4), (4, 4), (8, 4),
+                                       (4, 2), (4, 8))]               # stripes
+    + [(0, 0, 0, 1, 16, 4)]
+    + [(knock_bits(k), 0, 0, 1, 4, 4) for k in (
         ("charcol",), ("charcol", "bcast"), ("prefix",), ("prefix7",),
         ("shift1",), ("prefix", "shift1"),
         ("charcol", "bcast", "prefix", "shift1"))]                    # knock
-    + [(knock_bits(k), 0, 0, 1, 4) for k in ABLATE.values()]         # ablate
-    + [(0, LANE0[x], 0, 1, u) for x, u in (
-        ("B", 4), ("C", 4), ("D", 4), ("E", 4), ("B", 8), ("C", 8))])  # lane0
+    + [(knock_bits(k), 0, 0, 1, 4, 4) for k in ABLATE.values()]      # ablate
+    + [(0, LANE0[x], 0, 1, u, 4) for x, u in (
+        ("B", 4), ("C", 4), ("D", 4), ("E", 4), ("B", 8), ("C", 8))]  # lane0
+    + [(KNOCK["charcol"], 0, 0, 1, u, c) for u in (1, 4, 16)
+       for c in (4, 8, 16)]                                            # sweep
+    + [(knock_bits(k), 0, 0, 1, 4, 4) for k in ATTRIB2.values()])    # attrib2
+# its floor_kernel instantiations: (mode, K, live arrays)
+FLOOR_INSTANCES = frozenset(
+    [(FLOOR_MODES[k], K, 0) for k, Ks in FLOORS.items() for K in Ks]
+    + [(FLOOR_MODES[k], K, L) for k, KLs in FLOORS2.items()
+       for K, L in KLs])
 
 
 def _neg(dev):
@@ -136,6 +172,17 @@ def _window_max(x, width=128):
             [torch.full_like(x[:, :k], NEG_INF), x[:, :W - k]], dim=1))
         s *= 2
     return x
+
+
+def _aligned_max(x, stride=128):
+    """The aligned strides of ``_lane_prefix_max`` alone: at column j the
+    max over columns j, j - stride, j - 2 stride, ..."""
+    B, W = x.shape
+    q = -(-W // stride)
+    pad = torch.full((B, q * stride - W), NEG_INF, dtype=x.dtype,
+                     device=x.device)
+    lanes = torch.cat([x, pad], dim=1).view(B, q, stride)
+    return torch.cummax(lanes, dim=1).values.reshape(B, q * stride)[:, :W]
 
 
 def replica_plain(a, bext, rows, knock=(), lane0="K3P",
@@ -203,6 +250,8 @@ def replica_plain(a, bext, rows, knock=(), lane0="K3P",
             pm = omega
         elif bits & KNOCK["prefix7"]:
             pm = _window_max(omega)
+        elif bits & KNOCK["aligned"]:
+            pm = _aligned_max(omega)
         else:
             pm = _prefix_max(omega, nanp)
         t2 = pm - jg
@@ -216,11 +265,20 @@ def replica_plain(a, bext, rows, knock=(), lane0="K3P",
                      dim=1)
 
 
-def floor_plain(lb, W, rows, kind, K, params=PROBE_PARAMS):
+def _to_int(x, bits):
+    """float32 to int``bits`` as XLA converts, saturating (-inf to the
+    least value), the integers kept in int64."""
+    lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+    return x.to(torch.float64).clamp(lo, hi).to(torch.int64)
+
+
+def floor_plain(lb, W, rows, kind, K, params=PROBE_PARAMS, L=0):
     """Plain PyTorch floor_kernel: ``rows`` rows of K dependent (``chain``)
-    or K/4 rounds of four independent (``indep``) operations from row 0;
-    finals (B, 3) at (rows, lb). The floors read no pair data, so every
-    pair's row is the same: one row is stepped and read at each lb."""
+    or K/4 rounds of four independent (``indep``) operations, K dependent
+    ones over ``L`` live arrays (``live``), or K dependent integer ones
+    (``chain_i32``, ``chain_i16``: int16 adds wrap) from row 0; finals (B,
+    3) at (rows, lb). The floors read no pair data, so every pair's row is
+    the same: one row is stepped and read at each lb."""
     dev = lb.device
     f32 = torch.float32
     g, h = (torch.tensor(float(x), dtype=f32, device=dev)
@@ -239,6 +297,23 @@ def floor_plain(lb, W, rows, kind, K, params=PROBE_PARAMS):
             for _ in range(K):
                 x = torch.maximum(x + half, p2)
             p1 = x
+        elif kind == "live":
+            arrs = [p1, p2, p3][:max(L, 1)]
+            while len(arrs) < L:
+                arrs.append(arrs[len(arrs) % 3] + torch.tensor(
+                    0.125 * len(arrs), dtype=f32, device=dev))
+            x = arrs[0]
+            for k in range(K):
+                x = torch.maximum(x + half, arrs[(k + 1) % L])
+            p1 = x
+        elif kind in ("chain_i32", "chain_i16"):
+            bits = 16 if kind == "chain_i16" else 32
+            x, y = _to_int(p1, bits), _to_int(p2, bits)
+            for _ in range(K):
+                # x + 1 wrapping in the type, as XLA's adds do
+                x = torch.maximum((x + 1 + 2 ** (bits - 1)) % 2 ** bits
+                                  - 2 ** (bits - 1), y)
+            p1 = x.to(f32)
         else:
             ys = [p1, p2, p3, p1 + quarter]
             for _ in range(K // 4):
@@ -273,11 +348,12 @@ def knock_fill_plain(a, b_ext, knock=()):
     return replica_plain(a, b_ext, a.shape[1], knock)
 
 
-def ablate_finals_plain(a, b, lb, mode="full", K=0):
-    """Plain PyTorch P-ablate: finals (B, 3) under ``mode``."""
-    if mode in FLOORS:
-        return floor_plain(lb, b.shape[1] + 1, a.shape[1], mode, K)
-    return replica_plain(a, _bext(b), a.shape[1], ABLATE[mode], lb=lb)
+def ablate_finals_plain(a, b, lb, mode="full", K=0, L=0):
+    """Plain PyTorch P-ablate and P-attrib2: finals (B, 3) under ``mode``."""
+    if mode in FLOORS or mode in FLOORS2:
+        return floor_plain(lb, b.shape[1] + 1, a.shape[1], mode, K, L=L)
+    knock = ABLATE[mode] if mode in ABLATE else ATTRIB2[mode]
+    return replica_plain(a, _bext(b), a.shape[1], knock, lb=lb)
 
 
 def lane0_fill_plain(b_ext, mode, rows=ROWS):
@@ -286,44 +362,72 @@ def lane0_fill_plain(b_ext, mode, rows=ROWS):
     return replica_plain(None, b_ext, rows, lane0=mode)
 
 
+def sweep_fill_plain(b_ext, rows=ROWS):
+    """Plain PyTorch P-sweep (any columns a thread): the last row's max3
+    (B, W) with A's character 65."""
+    return replica_plain(None, b_ext, rows, ("charcol",))
+
+
 @functools.lru_cache(maxsize=None)
 def _entries():
     """ctypes entry points of csrc/rowprobe.cu: rowprobe_replica (4
-    pointers, then B, m, W, ext, out_row, knock, lane0, layout, S, U, g,
-    h, match, mismatch, stream) and rowprobe_floor (2 pointers, then B, m,
-    W, chain, K, g, h, stream)."""
+    pointers, then B, m, W, ext, out_row, knock, lane0, layout, S, U, C,
+    g, h, match, mismatch, stream), rowprobe_floor (2 pointers, then B, m,
+    W, mode, K, L, g, h, stream) and rowprobe_occupancy (W, knock, lane0,
+    layout, S, U, C, then a pointer to the int it writes)."""
     lib = _build.cuda_library("rowprobe")
     rep = lib.rowprobe_replica
     rep.restype = ctypes.c_int
-    rep.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+    rep.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
                     + [ctypes.c_float] * 4 + [ctypes.c_void_p])
     flo = lib.rowprobe_floor
     flo.restype = ctypes.c_int
-    flo.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+    flo.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
                     + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    return rep, flo
+    occ = lib.rowprobe_occupancy
+    occ.restype = ctypes.c_int
+    occ.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    return rep, flo, occ
 
 
-def threads_for(W, pairs=1):
+def threads_for(W, pairs=1, columns=COLUMNS, knock=()):
     """Threads a CTA of csrc/rowprobe.cu for a row of W columns: whole
-    warps of COLUMNS columns each, at most 1,024 (544 at four pairs a CTA
-    or more)."""
-    threads = -(-(-(-W // COLUMNS)) // 32) * 32
-    cap = 1024 if pairs <= 2 else 544
+    warps of ``columns`` columns each, at most 1,024 (544 at four pairs a
+    CTA or more, or at two CTAs an SM) at four columns a thread, 4,096 /
+    ``columns`` at more."""
+    threads = -(-(-(-W // columns)) // 32) * 32
+    if columns != COLUMNS:
+        cap = 4096 // columns
+    else:
+        cap = 544 if pairs > 2 or "twocta" in knock else 1024
     if W < 2 or threads > cap:
         raise ValueError(f"a row of {W} columns needs {threads} threads of "
-                         f"{COLUMNS} columns; csrc/rowprobe.cu takes 2 to "
-                         f"{cap * COLUMNS} at {pairs} pair(s) a CTA")
+                         f"{columns} columns; csrc/rowprobe.cu takes 2 to "
+                         f"{cap * columns} at {pairs} pair(s) a CTA")
     return threads
 
 
-def _instance(knock, lane0, layout, pairs, unroll):
-    key = (knock_bits(knock), LANE0[lane0], LAYOUTS[layout], pairs, unroll)
+def _instance(knock, lane0, layout, pairs, unroll, columns=COLUMNS):
+    key = (knock_bits(knock), LANE0[lane0], LAYOUTS[layout], pairs, unroll,
+           columns)
     if key not in INSTANCES:
         raise ValueError(f"csrc/rowprobe.cu has no instantiation for knock "
                          f"{sorted(knock)}, lane0 {lane0}, {layout}, "
-                         f"{pairs} pair(s) a CTA, unroll {unroll}")
+                         f"{pairs} pair(s) a CTA, unroll {unroll}, "
+                         f"{columns} columns a thread")
     return key
+
+
+def occupancy(W, knock=(), lane0="K3P", layout="contiguous", pairs=1,
+              unroll=4, columns=COLUMNS):
+    """CTAs an SM of the current card holds of that instantiation at a row
+    of W columns (CUDA's occupancy calculator on the built kernel)."""
+    key = _instance(knock, lane0, layout, pairs, unroll, columns)
+    threads_for(W, pairs, columns, knock)
+    blocks = ctypes.c_int(0)
+    _build.check(_entries()[2](W, *key, ctypes.addressof(blocks)),
+                 f"rowprobe_occupancy{key}")
+    return blocks.value
 
 
 def _check_codes(*codes):
@@ -351,7 +455,8 @@ def _launch(a, b, lb, rows, W, ext, key, params):
     """Launch replica_kernel; out (B, W) when ``lb`` is None, else (B, 3)."""
     B = b.shape[0]
     dev = b.device
-    threads_for(W, key[3])
+    threads_for(W, key[3], key[5],
+                [k for k, v in KNOCK.items() if key[0] & v])
     out = torch.full((B, W) if lb is None else (B, 3), NEG_INF,
                      dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -405,40 +510,55 @@ def knock_fill(a, b_ext, knock=(), unroll=4):
     return out
 
 
-def ablate_finals(a, b, lb, mode="full", K=0):
-    """P-ablate: finals (B, 3) of ``a`` (B, m) against ``b`` (B, n), start
-    type -1, every la = m, under an ``ABLATE`` mode, or the floor
-    ``"chain"`` or ``"indep"`` at ``K`` operations a row (``FLOORS``),
-    which reads only the shape of ``a`` and ``b``; floor launches count in
-    ``ablate_finals.floor_launches``."""
+def ablate_finals(a, b, lb, mode="full", K=0, L=0):
+    """P-ablate and P-attrib2: finals (B, 3) of ``a`` (B, m) against ``b``
+    (B, n), start type -1, every la = m, under an ``ABLATE`` or
+    ``ATTRIB2`` mode, or the floor ``"chain"`` or ``"indep"`` at ``K``
+    operations a row (``FLOORS``), or ``"live"`` (over ``L`` live
+    arrays), ``"chain_i32"`` or ``"chain_i16"`` (``FLOORS2``), which read
+    only the shape of ``a`` and ``b``. Launches count in ``launches``
+    (``ABLATE``), ``attrib2_launches`` (the other ``ATTRIB2`` modes),
+    ``floor_launches`` (``FLOORS``) and ``floor2_launches`` (``FLOORS2``)."""
     _check_codes(a, b)
     _check_lb(lb, b)
     if mode in FLOORS:
-        if K not in FLOORS[mode]:
+        if K not in FLOORS[mode] or L:
             raise ValueError(f"floor {mode} at K = {K}: csrc/rowprobe.cu has "
                              f"K of {FLOORS[mode]}")
-    elif mode not in ABLATE:
-        raise ValueError(f"mode {mode!r}: pick from {sorted(ABLATE)} or "
-                         f"{sorted(FLOORS)}")
+    elif mode in FLOORS2:
+        if (K, L) not in FLOORS2[mode]:
+            raise ValueError(f"floor {mode} at (K, L) = ({K}, {L}): "
+                             f"csrc/rowprobe.cu has K of {FLOORS2[mode]}")
+    elif mode in ABLATE or mode in ATTRIB2:
+        knock = ABLATE[mode] if mode in ABLATE else ATTRIB2[mode]
+        key = _instance(knock, "K3P", "contiguous", 1, 4)
     else:
-        key = _instance(ABLATE[mode], "K3P", "contiguous", 1, 4)
+        raise ValueError(f"mode {mode!r}: pick from "
+                         f"{sorted(set(ABLATE) | set(ATTRIB2))} or "
+                         f"{sorted(set(FLOORS) | set(FLOORS2))}")
     if a.device.type == "cpu":
-        return ablate_finals_plain(a, b, lb, mode, K)
+        return ablate_finals_plain(a, b, lb, mode, K, L)
     B, m = a.shape
     W = b.shape[1] + 1
-    if mode not in FLOORS:
+    if mode not in FLOORS and mode not in FLOORS2:
         out = _launch(a, b, lb, m, W, 0, key, PROBE_PARAMS)
-        ablate_finals.launches += 1
+        if mode in ABLATE:
+            ablate_finals.launches += 1
+        else:
+            ablate_finals.attrib2_launches += 1
         return out
     threads_for(W)
     out = torch.full((B, 3), NEG_INF, dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         err = _entries()[1](
-            lb.data_ptr(), out.data_ptr(), B, m, W, int(mode == "chain"), K,
+            lb.data_ptr(), out.data_ptr(), B, m, W, FLOOR_MODES[mode], K, L,
             *PROBE_PARAMS.astuple()[:2],
             torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(err, f"rowprobe_floor({mode}, K = {K})")
-    ablate_finals.floor_launches += 1
+    _build.check(err, f"rowprobe_floor({mode}, K = {K}, L = {L})")
+    if mode in FLOORS:
+        ablate_finals.floor_launches += 1
+    else:
+        ablate_finals.floor2_launches += 1
     return out
 
 
@@ -460,9 +580,27 @@ def lane0_fill(b_ext, mode, unroll=4, rows=ROWS):
     return out
 
 
+def sweep_fill(b_ext, columns=COLUMNS, unroll=4, rows=ROWS):
+    """P-sweep: the last row's max3 (B, W) of ``rows`` row steps with A's
+    character 65 over every column of ``b_ext`` (B, W), ``columns`` (4, 8
+    or 16) columns a thread, the row loop unrolled ``unroll`` (1, 4 or 16)
+    times."""
+    _check_codes(b_ext)
+    key = _instance(("charcol",), "K3P", "contiguous", 1, unroll, columns)
+    if b_ext.device.type == "cpu":
+        return sweep_fill_plain(b_ext, rows)
+    out = _launch(None, b_ext, None, rows, b_ext.shape[1], 1, key,
+                  PROBE_PARAMS)
+    sweep_fill.launches += 1
+    return out
+
+
 perm_finals.launches = 0
 stripes_fill.launches = 0
 knock_fill.launches = 0
 ablate_finals.launches = 0
 ablate_finals.floor_launches = 0
+ablate_finals.attrib2_launches = 0
+ablate_finals.floor2_launches = 0
 lane0_fill.launches = 0
+sweep_fill.launches = 0

@@ -26,11 +26,24 @@ the variants of the K3' row step beside K3' and its own full step:
 - ``ablate``: P-ablate, per-row parts ablated, and the raw max-chain
   floors (scripts/probes/attrib_r5.py);
 - ``lane0``: P-lane0, column 0's T3 in the forms A to E
-  (scripts/kern_scalar.py).
+  (scripts/kern_scalar.py);
+- ``sweep``: P-sweep, pairs x row width x columns a thread x unroll of
+  the step with A's character fixed (scripts/kern_sweep.py);
+- ``attrib2``: P-attrib2, the prefix max's aligned and unaligned parts,
+  the scan and the halo through shared memory, two CTAs an SM, and the
+  live-array and integer floors, beside K3' and K3
+  (scripts/probes/attrib2_r5.py);
+
+and the op-cost micro-probes over ops/micro.py:
+
+- ``micro``: P-micro and P-micro2, ns an operation of each class in a
+  dependent loop, by the difference of two step counts
+  (scripts/kern_probe.py, scripts/kern_probe2.py; ``--which``).
 
 They run on the card unless ``--device cpu`` is given, and then report
 host-clock times (``host_ms``) and no rate.
 """
 
 MODULES = ("ab_rowscan2", "trim_rowscan", "dual_stream", "walk_ab",
-           "perm_layout", "stripes", "knockout", "ablate", "lane0")
+           "perm_layout", "stripes", "knockout", "ablate", "lane0",
+           "sweep", "attrib2", "micro")

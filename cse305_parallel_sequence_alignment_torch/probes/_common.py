@@ -20,15 +20,18 @@ from cse305_parallel_sequence_alignment_torch.ops import (
 )
 
 
-def parse(argv, doc, rounds=3):
+def parse(argv, doc, rounds=3, extra=None):
     """The probes' arguments: ``--device`` ("cuda" unless "cpu" is asked
     for), ``--small`` (a few narrow pairs: for the CPU tests), ``--rounds``
-    (interleaved A/B rounds) and ``--reps`` (timed calls a measurement)."""
+    (interleaved A/B rounds) and ``--reps`` (timed calls a measurement);
+    ``extra(parser)`` adds a probe's own."""
     ap = argparse.ArgumentParser(description=doc)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--small", action="store_true")
     ap.add_argument("--rounds", type=int, default=rounds)
     ap.add_argument("--reps", type=int, default=6)
+    if extra:
+        extra(ap)
     args = ap.parse_args(argv)
     args.dev = _build.resolve_device(args.device, "probe")
     return args
@@ -99,9 +102,11 @@ def same(x, y):
 # call on the reduced bucket) and ``twin`` (the key of the twin's call
 # there), the names of its ``full`` step and its K3' ``pin``, its DP
 # ``cells`` and the bytes its call must move (``nbytes``), and ``k3p``:
-# None, or a call that says whether its full-size result equals K3''s
+# None, or a call that says whether its full-size result equals K3''s;
+# ``info``, fields its lines carry (shapes, threads, occupancy) or None
 Variant = collections.namedtuple(
-    "Variant", "run plain reduced twin full pin cells nbytes k3p")
+    "Variant", "run plain reduced twin full pin cells nbytes k3p info",
+    defaults=(None,))
 
 
 def run_attribution(args, rows, pins, variants, twins):
@@ -142,7 +147,7 @@ def run_attribution(args, rows, pins, variants, twins):
                 extra = dict(vs_full=t["ms"] / times[v.full]["ms"],
                              vs_k3p=t["ms"] / times[v.pin]["ms"])
             emit(kind="round", round=rnd, name=name, rows=rows,
-                 **row(v.cells, t), **extra, **flags[name])
+                 **row(v.cells, t), **extra, **flags[name], **(v.info or {}))
 
 
 def ext_codes(dev, B, W, seed=7):

@@ -15,8 +15,9 @@ from cse305_parallel_sequence_alignment_torch.core import ScoringParams
 
 @dataclasses.dataclass
 class RunConfig:
-    # the reference dataset's file name; --data gives its location
-    data_path: str = "gene_sequences_test"
+    # the reference dataset, where the JAX package's RunConfig looks for
+    # it; --data gives another location
+    data_path: str = "/root/reference/gene_sequences_test"
     g: float = 1.0          # gap extend (testing.cpp:134)
     h: float = 2.0          # gap open (testing.cpp:134)
     match: float = 1.0

@@ -34,11 +34,14 @@ from cse305_parallel_sequence_alignment_torch.ops import (
 from cse305_parallel_sequence_alignment_torch.parallel import (
     batch_shard, longseq, mesh, multihost, partition)
 from cse305_parallel_sequence_alignment_torch.ops import (
-    halostair, rowprobe, rowscan2)
+    halostair, micro, rowprobe, rowscan2)
 from cse305_parallel_sequence_alignment_torch.probes import (
     _common, ab_rowscan2, dual_stream, trim_rowscan, walk_ab)
 from cse305_parallel_sequence_alignment_torch.probes import (
     ablate, knockout, lane0, perm_layout, stripes)
+from cse305_parallel_sequence_alignment_torch.probes import (
+    attrib2, sweep)
+from cse305_parallel_sequence_alignment_torch.probes import micro as pmicro
 from cse305_parallel_sequence_alignment_torch.native import walker
 from cse305_parallel_sequence_alignment_torch.utils import (
     config, fasta, matrices)
@@ -120,7 +123,9 @@ def test_banded_and_matrix_sources_are_the_ports_own(rel):
                                  "probes/perm_layout.py",
                                  "probes/stripes.py",
                                  "probes/knockout.py", "probes/ablate.py",
-                                 "probes/lane0.py"])
+                                 "probes/lane0.py", "ops/micro.py",
+                                 "csrc/micro.cu", "probes/sweep.py",
+                                 "probes/attrib2.py", "probes/micro.py"])
 def test_score_fill_probe_sources_are_the_ports_own(rel):
     """K3'', P-trim, P-dual, K2' and the row-step probes (and their probe
     modules) lie under the port and name neither jax nor the JAX package;

@@ -16,13 +16,16 @@ from cse305_parallel_sequence_alignment_torch.probes import MODULES
 FLAGS = {"ab_rowscan2": "cells_equal", "trim_rowscan": "exact",
          "dual_stream": "cells_equal", "walk_ab": "mismatched_pairs",
          "perm_layout": "exact", "stripes": "exact", "knockout": "exact",
-         "ablate": "exact", "lane0": "exact"}
+         "ablate": "exact", "lane0": "exact", "sweep": "exact",
+         "attrib2": "exact", "micro": "exact"}
 KINDS = {"ab_rowscan2": {"check", "round", "columns"},
          "trim_rowscan": {"round"},
          "dual_stream": {"dual", "halostair_d1"},
          "walk_ab": {"fill_dirs16", "walk", "fused_phases", "align_batch"},
          "perm_layout": {"round"}, "stripes": {"round"},
-         "knockout": {"round"}, "ablate": {"round"}, "lane0": {"round"}}
+         "knockout": {"round"}, "ablate": {"round"}, "lane0": {"round"},
+         "sweep": {"round"}, "attrib2": {"round"},
+         "micro": {"micro", "micro2"}}
 
 
 def probe(name):

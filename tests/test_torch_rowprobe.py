@@ -372,21 +372,25 @@ def test_stripes_equal_lane0_a_c_d_and_k3p():
 
 
 def test_instances_are_the_sources():
-    """``INSTANCES`` and ``FLOORS`` list exactly what csrc/rowprobe.cu
-    instantiates."""
+    """``INSTANCES`` and ``FLOOR_INSTANCES`` list exactly what
+    csrc/rowprobe.cu instantiates."""
     text = (ROOT / "cse305_parallel_sequence_alignment_torch" / "csrc"
             / "rowprobe.cu").read_text()
     cname = {"charcol": "kCharcol", "bcast": "kBcast", "shift1": "kShift1",
              "prefix": "kPrefix", "prefix7": "kPrefix7", "nochar": "kNochar",
-             "nofb": "kNofb", "not3": "kNot3", "noboundary": "kNoBoundary"}
+             "nofb": "kNofb", "not3": "kNot3", "noboundary": "kNoBoundary",
+             "aligned": "kAligned", "smemscan": "kSmemScan",
+             "smemhalo": "kSmemHalo", "twocta": "kTwoCta"}
+    fname = {"indep": "kIndep", "chain": "kChain", "live": "kLive",
+             "chain_i32": "kChainI32", "chain_i16": "kChainI16"}
     names = {cname[k]: v for k, v in rowprobe.KNOCK.items()}
     names.update({"kK3p" if k == "K3P" else f"kLane{k}": v
                   for k, v in rowprobe.LANE0.items()})
     names.update(kContig=rowprobe.LAYOUTS["contiguous"],
                  kStrided=rowprobe.LAYOUTS["strided"])
+    names.update({fname[k]: v for k, v in rowprobe.FLOOR_MODES.items()})
     for name, v in names.items():
         assert re.search(rf"\b{name} = {v}\b", text), name
-    names.update(true=1, false=0)
 
     def value(expr):
         return sum(names[t.strip()] if not t.strip().isdigit()
@@ -397,8 +401,7 @@ def test_instances_are_the_sources():
     fl = {tuple(value(x) for x in m.split(","))
           for m in re.findall(r"^\s*FL\(([^)]*)\)$", text, re.M)}
     assert rp == rowprobe.INSTANCES
-    assert fl == {(int(k == "chain"), K) for k, Ks in rowprobe.FLOORS.items()
-                  for K in Ks}
+    assert fl == rowprobe.FLOOR_INSTANCES
 
 
 def test_ptxas_report_names_each_instantiation():
