@@ -16,13 +16,18 @@ P-lane0, P-sweep, P-attrib2) and the op-cost micro-probes (P-micro,
 P-micro2):
 
 1. card, torch and CUDA versions; the kernels' build time; ptxas's
-   registers, stack and spills of each row-step probe kernel and each
-   micro-probe kernel;
+   registers, stack and spills of each K1/K4d fill instance (none may
+   spill), each row-step probe kernel and each micro-probe kernel;
 2. each kernel against its plain PyTorch version on the card, bit for
-   bit, both timed with CUDA events: K1 dirs16+runs fill, K3
-   anti-diagonal score fill and K2 run-length walk on 8 ragged pairs up
-   to 2 kb with every start type, on rows too wide for shared memory,
-   and on 256 x 2 kb; K1, K3, K6, K3', K1', K5 and K2s again at g=0.3,
+   bit, both timed with CUDA events: K1 dirs16+runs fill (csrc/
+   rowfill.cu, its geometry, registers and occupancy printed; the sweep
+   it replaced timed beside), K3 anti-diagonal score fill and K2
+   run-length walk on 8 ragged pairs up to 2 kb with every start type,
+   on 4 x 300 x 9 kb, and on 256 x 2 kb; K1 and K2 on its pitched dirs
+   at a partition segment (2 x 3,584 x 26,624) and 4 x 14 kb (clusters
+   of 8 CTAs a pair) and 300 x 70 kb (past 8 CTAs' reach: the
+   global-scratch sweep, the K1-wide row) (``[k1-shapes]``); K1, K3,
+   K6, K3', K1', K5 and K2s again at g=0.3,
    h=1.7 (the ``[numerics]`` line); K6 long fill on 8 jobs of 3-5 k x
    17-20 k with mixed start types, finals and last rows; K7 on one
    6,000 x 20,000 job for 3 start types;
@@ -256,6 +261,8 @@ def u16(x):
 def max_err(x, y):
     """Largest |x - y|, with equal entries (-inf included) as 0."""
     import torch
+    if x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y):
+        return 0.0  # without widening: a dirs array may be gigabytes
     x, y = x.to(torch.float64), y.to(torch.float64)
     d = torch.where(x == y, torch.zeros_like(x), (x - y).abs())
     return float(d.max()) if d.numel() else 0.0
@@ -285,6 +292,28 @@ def timed(fn, reps, warm=True):
     t1.record()
     t1.synchronize()
     return out, t0.elapsed_time(t1) / reps
+
+
+# ptxas's (registers, stack, spill stores, spill loads) of each
+# csrc/rowfill.cu instance, filled in by main's build phase
+ROWFILL_USAGE = {}
+
+
+def fill_desc(B, n, k1=0):
+    """K1/K4d's geometry for a (B, n) bucket (ops/rowcb.py
+    ``fill_geometry``) with its instance's registers and CUDA's occupancy,
+    or the width rule's global-scratch route."""
+    from cse305_parallel_sequence_alignment_torch.ops import rowcb
+    geo = rowcb.fill_geometry(B, n, k1)
+    if geo is None:
+        return "past 8 CTAs' reach: csrc/rowcb.cu sweep, global scratch"
+    C, threads, k = geo
+    kern = f"fill_kernel<{C},{int(k1 > 0)},{int(k > 1)}>"
+    regs, _, st, ld = ROWFILL_USAGE.get(kern, (None, 0, 0, 0))
+    per_sm, clusters = rowcb.fill_occupancy(C, threads, k, k1)
+    return (f"C={C}, threads={threads}, k={k} ({kern}: {regs} registers, "
+            f"{st}/{ld} bytes spilled; {per_sm} CTAs an SM"
+            + (f", {clusters} clusters at once" if k > 1 else "") + ")")
 
 
 def bucket(rng, la, lb, m, n):
@@ -358,8 +387,19 @@ def phase_kernels(report):
             lambda: device_walk.rle_walk_plain(d_k, tla, tlb, t0,
                                                max_steps), 1)
         e2 = max(max_err(u16(w_k), u16(w_p)), max_err(u_k, u_p))
+        old_ms, alt = None, ""
+        if big:  # the sweep K1 ran on before csrc/rowfill.cu, same call
+            _, old_ms = timed(lambda: rowcb._launch(
+                ta, tb_, tla, tlb, tst, params, "global"), reps)
+            for geo in ((4, 544, 1), (16, 160, 1)):  # the other C
+                _, ams = timed(lambda: rowcb._fill(
+                    ta, tb_, tla, tlb, tst, params, None, geo), reps)
+                alt += f"; at {geo} {ams:.3f} ms"
         print(f"[kernels] {name}: K1 err {e1} {ms1:.3f} ms (plain "
-              f"{pms1:.1f} ms); K3 err {e3} {ms3:.3f} ms (plain "
+              f"{pms1:.1f} ms; {fill_desc(len(la), b.shape[1])}"
+              + (f"{alt}; before: csrc/rowcb.cu {old_ms:.3f} ms" if big
+                 else "")
+              + f"); K3 err {e3} {ms3:.3f} ms (plain "
               f"{pms3:.1f} ms); K2 err {e2} rounds {int(u_k[0])} "
               f"{ms2:.3f} ms (plain {pms2:.1f} ms)", flush=True)
         if e1 or e2 or e3:
@@ -382,6 +422,100 @@ def phase_kernels(report):
                 rep["ms"], rep["plain_ms"] = ms, pms
                 rep["bound_ms"], rep["bound_by"] = bounds[key]
         del d_k, d_p
+        torch.cuda.empty_cache()
+    phase_k1_shapes(report, params)
+
+
+def phase_k1_shapes(report, params):
+    """K1 at the shapes past one CTA, bit for bit against its plain
+    version: a partition segment (2 pairs of about 3,584 x 26,624, start
+    types -1 and 1) and 4 x 14 kb (half of them related, runs past the
+    255 cap), each in clusters of 8 CTAs, with K2 on their pitched dirs
+    and, timed beside, the fewest CTAs that hold a row and the sweep K1
+    ran on before; and 300 x 70 kb, past 8 CTAs' reach (the width rule's
+    global-scratch sweep, counted in ``wide_launches``, which sets the
+    K1-wide row)."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.ops import (
+        device_walk,
+        rowcb,
+    )
+
+    rng = np.random.default_rng(17)
+    seg = dict(la=np.array([3584, 3401], np.int32),
+               lb=np.array([26624, 25001], np.int32),
+               st=np.array([-1, 1], np.int32))
+    a, b = bucket(rng, seg["la"], seg["lb"], 3584, 26624)
+    cases = [("partition segment 2 x 3,584 x 26,624", a, b, seg)]
+    L = 14000
+    a = ACGT[rng.integers(0, 4, (4, L))]
+    b = ACGT[rng.integers(0, 4, (4, L))]
+    for k in (1, 3):  # related: b is a with 0.2% substitutions
+        b[k] = a[k]
+        flip = rng.integers(0, L, L // 500)
+        b[k, flip] = ACGT[rng.integers(0, 4, len(flip))]
+    full = np.full(4, L, np.int32)
+    cases.append(("4 x 14 kb", a, b, dict(la=full, lb=full,
+                                          st=np.full(4, -1, np.int32))))
+    wide = dict(la=np.array([300, 299], np.int32),
+                lb=np.array([70000, 69000], np.int32),
+                st=np.array([-1, -3], np.int32))
+    a, b = bucket(rng, wide["la"], wide["lb"], 300, 70000)
+    cases.append(("300 x 70 kb", a, b, wide))
+    dev = torch.device("cuda")
+    for name, a, b, lens in cases:
+        la, lb, st = lens["la"], lens["lb"], lens["st"]
+        args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                for x in (a, b, la, lb, st)]
+        before = rowcb.rowcb_fill.wide_launches
+        (d_k, f_k), ms = timed(lambda: rowcb.rowcb_fill(*args, params), 1)
+        is_wide = rowcb.rowcb_fill.wide_launches > before
+        (d_p, f_p), pms = timed(lambda: rowcb.rowcb_fill_plain(
+            *args, params), 1, warm=False)
+        e1 = max(max_err(u16(d_k), u16(d_p)), max_err(f_k, f_p))
+        del d_p
+        torch.cuda.empty_cache()
+        old, e2, walked = "", 0.0, ""
+        if not is_wide:  # K2 on the pitched dirs (the wide route's are not)
+            t0 = torch.from_numpy(rng.integers(1, 4, len(la)).astype(
+                np.int32)).to(dev)
+            steps = int(la.max() + lb.max()) + 1
+            w_k, u_k = device_walk.rle_walk(d_k, args[2], args[3], t0, steps)
+            w_p, u_p = device_walk.rle_walk_plain(d_k, args[2], args[3], t0,
+                                                  steps)
+            e2 = max(max_err(u16(w_k), u16(w_p)), max_err(u_k, u_p))
+            walked = (f"; K2 on its dirs (pitch "
+                      f"{device_walk.row_pitch(d_k)}) err {e2} rounds "
+                      f"{int(u_k[0])}")
+            _, old_ms = timed(lambda: rowcb._launch(*args, params, "global"),
+                              1)
+            # the fewest CTAs that hold the row, beside the chosen spread
+            k_min = -(-(b.shape[1] + 1) // rowcb.CTA_REACH)
+            few = (16, 32 * -(-(b.shape[1] + 1) // (32 * 16 * k_min)),
+                   k_min)
+            _, few_ms = timed(lambda: rowcb._fill(*args, params, None,
+                                                  few), 1)
+            old = (f"; the fewest CTAs {few}: {few_ms:.3f} ms; before: "
+                   f"csrc/rowcb.cu {old_ms:.3f} ms")
+        cells = float((la.astype(np.int64) * lb).sum())
+        bnd = bound(DIRS_OPS * cells, nbytes(*args, d_k, f_k))
+        print(f"[k1-shapes] {name}: K1 err {e1} {ms:.3f} ms "
+              f"({cells / ms / 1e6:.1f} GCUPS; bound {bnd[0]:.4f} ms by "
+              f"{bnd[1]}; plain {pms:.1f} ms; "
+              f"{fill_desc(len(la), b.shape[1])}{old}){walked}",
+              flush=True)
+        if e1 or e2 or is_wide != name.startswith("300"):
+            raise RuntimeError(f"K1 at {name}: err {e1}, K2 {e2}, wide "
+                               f"route {is_wide}")
+        key = "K1-wide" if is_wide else "K1"
+        rep = report[key]
+        rep["max_abs_err"] = max(rep["max_abs_err"], e1)
+        report["K2"]["max_abs_err"] = max(report["K2"]["max_abs_err"], e2)
+        if is_wide:
+            rep["ms"], rep["plain_ms"] = ms, pms
+            rep["bound_ms"], rep["bound_by"] = bnd
+        del d_k
         torch.cuda.empty_cache()
 
 
@@ -2129,8 +2263,15 @@ def phase_matrix_kernels(report, mdata):
             *sargs, table, params), 1, warm=False)
         # K4s and K4d agree on the pairs both chunks hold
         es = max(max_err(s_k, s_p), max_err(s_k[: len(la)], f_k))
+        old = ""
+        if big:  # the sweep K4d ran on before csrc/rowfill.cu, same call
+            _, old_ms = timed(lambda: rowcb._launch(
+                *args, params, "global", table), reps)
+            old = f"; before: csrc/rowcb.cu {old_ms:.3f} ms"
         print(f"[matrix-kernels] {name}: K4d err {ed} {msd:.3f} ms (plain "
-              f"{pmsd:.1f} ms); K4s err {es} {mss:.3f} ms (plain "
+              f"{pmsd:.1f} ms; "
+              f"{fill_desc(len(la), dbucket[1].shape[1], table.shape[0])}"
+              f"{old}); K4s err {es} {mss:.3f} ms (plain "
               f"{pmss:.1f} ms)", flush=True)
         if ed or es:
             raise RuntimeError(f"a matrix kernel disagrees with its plain "
@@ -2825,7 +2966,7 @@ def main():
                   for k in _build.KERNELS}
         builds["tsalib"] = pool.submit(build, _build.host_library)
         ptxas = {k: pool.submit(_build.resource_usage, k)
-                 for k in ("rowprobe", "micro")}
+                 for k in ("rowfill", "rowprobe", "micro")}
         done = {k: b.result() for k, b in builds.items()}
         print(f"[build] kernels {_build.KERNELS} and host library built and "
               f"loaded in {time.perf_counter() - t0:.1f} s (each done at: "
@@ -2837,14 +2978,25 @@ def main():
                 print(f"[ptxas] {src_name}.cu {kernel}: {regs} registers, "
                       f"{stack} bytes stack, {st}/{ld} bytes spilled "
                       f"(stores/loads)", flush=True)
+        ROWFILL_USAGE.update(ptxas["rowfill"].result())
+        spilled = {k: v for k, v in ROWFILL_USAGE.items() if v[2] or v[3]}
+        if len(ROWFILL_USAGE) != 8 or spilled:
+            raise RuntimeError(f"csrc/rowfill.cu: 8 instances without a "
+                               f"spill expected, got {ROWFILL_USAGE}")
 
     src = f"{PKG}/csrc"
     report = {
         "K1": dict(name="rowcb_fill (K1 dirs16+runs fill)", route="cuda",
-                   source=f"{src}/rowcb.cu",
+                   source=f"{src}/rowfill.cu",
                    replaces="cse305_parallel_sequence_alignment_tpu/ops/"
                             "pallas_rowcb.py:126",
                    fn=rowcb.rowcb_fill),
+        "K1-wide": dict(name="rowcb_fill past 8 CTAs' reach (K1 "
+                             "global-scratch sweep)", route="cuda",
+                        source=f"{src}/rowcb.cu",
+                        replaces="cse305_parallel_sequence_alignment_tpu/"
+                                 "ops/pallas_rowcb.py:126",
+                        fn=rowcb.rowcb_fill, counter="wide_launches"),
         "K3": dict(name="score_fill (K3 anti-diagonal score fill)",
                    route="cuda", source=f"{src}/diag.cu",
                    replaces="cse305_parallel_sequence_alignment_tpu/ops/"
@@ -2906,7 +3058,8 @@ def main():
                              "pallas_fill.py:1110",
                     fn=rowcb.submat_score_fill),
         "K4d": dict(name="rowcb_fill with a table (K4d substitution-matrix "
-                         "dirs fill)", route="cuda", source=f"{src}/rowcb.cu",
+                         "dirs fill)", route="cuda",
+                    source=f"{src}/rowfill.cu",
                     replaces="cse305_parallel_sequence_alignment_tpu/ops/"
                              "pallas_rowcb.py:244",
                     fn=rowcb.rowcb_fill, counter="table_launches"),

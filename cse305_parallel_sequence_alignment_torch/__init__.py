@@ -39,6 +39,7 @@ from cse305_parallel_sequence_alignment_torch.core import (
     NEG_INF,
     AlignmentResult,
     ScoringParams,
+    SubstitutionMatrix,
     decode_seq,
     encode_seq,
 )
@@ -54,6 +55,7 @@ __all__ = [
     "NEG_INF",
     "AlignmentResult",
     "ScoringParams",
+    "SubstitutionMatrix",
     "encode_seq",
     "decode_seq",
     "align",

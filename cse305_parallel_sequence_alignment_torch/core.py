@@ -210,6 +210,13 @@ class AlignmentResult:
     aligned_b: str | None = None
     end_table: int | None = None
 
+    def cigar(self) -> str:
+        """SAM CIGAR of the chain (M/I/D; A is the query)."""
+        from cse305_parallel_sequence_alignment_torch.ops.cigar import (
+            chain_to_cigar,
+        )
+        return chain_to_cigar(self.chain or [])
+
 
 def encode_seq(s, dtype=np.uint8):
     """ASCII string/bytes -> uint8 numpy array (0-indexed, no sentinel)."""

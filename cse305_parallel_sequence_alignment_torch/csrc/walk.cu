@@ -67,7 +67,8 @@ __global__ void rle_walk_kernel(const uint16_t* __restrict__ dirs,
                                 const int32_t* __restrict__ t0,
                                 uint16_t* __restrict__ entries,
                                 int32_t* __restrict__ used, int B, int nrows,
-                                int ncols, int max_rounds, int band_lo) {
+                                int ncols, int pitch, int max_rounds,
+                                int band_lo) {
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= B) return;
     int i = la[b], j = lb[b], t = t0[b];
@@ -77,7 +78,7 @@ __global__ void rle_walk_kernel(const uint16_t* __restrict__ dirs,
         const int ri = min(max(i, 0), nrows - 1);
         const int cj = min(max(band_lo < 0 ? j : j - i + band_lo, 0),
                            ncols - 1);
-        const int word = dirs[((size_t)ri * B + b) * ncols + cj];
+        const int word = dirs[((size_t)ri * B + b) * pitch + cj];
         int k = 0, op, di, dj;
         if (t == 1) {
             k = (word >> 8) & 255;
@@ -135,7 +136,7 @@ __global__ void group_walk_kernel(const uint16_t* __restrict__ dirs,
                                   int32_t* __restrict__ entries,
                                   int32_t* __restrict__ used, int B,
                                   int pair_stride, int nrows, int ncols,
-                                  int R_pad) {
+                                  int pitch, int R_pad) {
     const int g0 = (blockIdx.x * blockDim.x + threadIdx.x) * G;
     if (g0 >= B) return;
     int iv[G], jv[G], tv[G], rd[G];
@@ -161,7 +162,7 @@ __global__ void group_walk_kernel(const uint16_t* __restrict__ dirs,
             if (alive[u]) {
                 const int r = min(max(iv[u], 0), nrows - 1);
                 const int c = min(max(jv[u], 0), ncols - 1);
-                word[u] = dirs[((size_t)r * pair_stride + g0 + u) * ncols + c];
+                word[u] = dirs[((size_t)r * pair_stride + g0 + u) * pitch + c];
             }
         }
         any = false;
@@ -196,13 +197,13 @@ __global__ void group_walk_kernel(const uint16_t* __restrict__ dirs,
 template <int G>
 int launch_group(const uint16_t* dirs, const int32_t* la, const int32_t* lb,
                  const int32_t* t0, int32_t* entries, int32_t* used, int B,
-                 int pair_stride, int nrows, int ncols, int R_pad,
+                 int pair_stride, int nrows, int ncols, int pitch, int R_pad,
                  cudaStream_t stream) {
     const int threads = 128;
     const int walkers = (B + G - 1) / G;
     const int blocks = (walkers + threads - 1) / threads;
     group_walk_kernel<G><<<blocks, threads, 0, stream>>>(
-        dirs, la, lb, t0, entries, used, B, pair_stride, nrows, ncols,
+        dirs, la, lb, t0, entries, used, B, pair_stride, nrows, ncols, pitch,
         R_pad);
     return (int)cudaGetLastError();
 }
@@ -211,19 +212,22 @@ int launch_group(const uint16_t* dirs, const int32_t* la, const int32_t* lb,
 
 extern "C" {
 
-// dirs: (nrows, B, ncols) uint16, row layout when band_lo < 0, else band
-// layout with lower width band_lo; la/lb/t0: (B,) i32; entries:
+// dirs: (nrows, B, ncols) uint16 with a row pitch of pitch >= ncols
+// elements (cell (r, b, c) at (r * B + b) * pitch + c: K1's pitched dirs;
+// pitch = ncols for a contiguous array), row layout when band_lo < 0, else
+// band layout with lower width band_lo; la/lb/t0: (B,) i32; entries:
 // (max_rounds, B) uint16, zeroed by the caller; used: one i32, zeroed by
 // the caller. Returns a cudaError_t code.
 int rle_walk(const uint16_t* dirs, const int32_t* la, const int32_t* lb,
              const int32_t* t0, uint16_t* entries, int32_t* used, int B,
-             int nrows, int ncols, int max_rounds, int band_lo,
+             int nrows, int ncols, int pitch, int max_rounds, int band_lo,
              void* stream) {
     if (B == 0) return 0;
+    if (pitch < ncols) return (int)cudaErrorInvalidValue;
     const int threads = 128;
     const int blocks = (B + threads - 1) / threads;
     rle_walk_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        dirs, la, lb, t0, entries, used, B, nrows, ncols, max_rounds,
+        dirs, la, lb, t0, entries, used, B, nrows, ncols, pitch, max_rounds,
         band_lo);
     return (int)cudaGetLastError();
 }
@@ -245,26 +249,32 @@ int step_walk(const uint8_t* dirs, const int32_t* la, const int32_t* lb,
 }
 
 // dirs: (nrows, pair_stride, ncols) uint16 dirs16+runs, row layout, with
-// pair_stride >= B; la/lb/t0: (B,) i32; entries: (B, R_pad) i32, zeroed by
-// the caller; used: (B,) i32; G pairs a thread, 1, 2, 4 or 8; R_pad >= 1.
+// pair_stride >= B and a row pitch of pitch >= ncols elements, as
+// rle_walk's; la/lb/t0: (B,) i32; entries: (B, R_pad) i32, zeroed by the
+// caller; used: (B,) i32; G pairs a thread, 1, 2, 4 or 8; R_pad >= 1.
 // Returns a cudaError_t code.
 int group_walk(const uint16_t* dirs, const int32_t* la, const int32_t* lb,
                const int32_t* t0, int32_t* entries, int32_t* used, int B,
-               int pair_stride, int nrows, int ncols, int R_pad, int G,
-               void* stream) {
+               int pair_stride, int nrows, int ncols, int pitch, int R_pad,
+               int G, void* stream) {
     if (B == 0) return 0;
-    if (pair_stride < B || R_pad < 1 || nrows < 1 || ncols < 1)
+    if (pair_stride < B || R_pad < 1 || nrows < 1 || ncols < 1 ||
+        pitch < ncols)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     switch (G) {
         case 1: return launch_group<1>(dirs, la, lb, t0, entries, used, B,
-                                       pair_stride, nrows, ncols, R_pad, s);
+                                       pair_stride, nrows, ncols, pitch, R_pad,
+                                       s);
         case 2: return launch_group<2>(dirs, la, lb, t0, entries, used, B,
-                                       pair_stride, nrows, ncols, R_pad, s);
+                                       pair_stride, nrows, ncols, pitch, R_pad,
+                                       s);
         case 4: return launch_group<4>(dirs, la, lb, t0, entries, used, B,
-                                       pair_stride, nrows, ncols, R_pad, s);
+                                       pair_stride, nrows, ncols, pitch, R_pad,
+                                       s);
         case 8: return launch_group<8>(dirs, la, lb, t0, entries, used, B,
-                                       pair_stride, nrows, ncols, R_pad, s);
+                                       pair_stride, nrows, ncols, pitch, R_pad,
+                                       s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

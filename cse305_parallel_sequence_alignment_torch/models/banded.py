@@ -25,6 +25,9 @@ from cse305_parallel_sequence_alignment_torch.core import (
     end_table_choice,
 )
 from cse305_parallel_sequence_alignment_torch.models.batch import _Marks
+from cse305_parallel_sequence_alignment_torch.models.chunked import (
+    check_backend,
+)
 from cse305_parallel_sequence_alignment_torch.native import walker
 from cse305_parallel_sequence_alignment_torch.ops.banded import (
     band_check,
@@ -48,8 +51,10 @@ class BandedAligner:
 
     Exact whenever the optimal unrestricted path stays inside the band
     (guaranteed if w_lo/w_hi exceed the longest gap run, e.g. both >=
-    |m - n| + max_indels). ``device`` is where the kernels run ("cuda" by
-    default, "cpu" for their plain PyTorch versions). ``last_phases``
+    |m - n| + max_indels). ``backend`` takes the JAX package's values
+    ("auto", "pallas", "wavefront"), each running the K12 kernels.
+    ``device`` is where the kernels run ("cuda" by default, "cpu" for
+    their plain PyTorch versions). ``last_phases``
     holds the phase times (ms) of the latest ``align``: the fill (with
     the end choice) and the walk on the device's clock, the
     device-to-host copy of the walk, the replay and the render on the
@@ -62,9 +67,13 @@ class BandedAligner:
     start_type: int = -1
     end_type: int = -1
     traceback_mode: str = "parity"  # "full" emits forced edge runs
+    # the JAX package's values; all three run K12, since the JAX XLA and
+    # Pallas band routes agree
+    backend: str = "auto"
     device: str = "cuda"
 
     def __post_init__(self):
+        check_backend(self.backend, "BandedAligner")
         self._dev = torch.device(self.device)
         if self._dev.type not in ("cpu", "cuda"):
             raise ValueError(f"device {self.device!r}: 'cuda' or 'cpu'")

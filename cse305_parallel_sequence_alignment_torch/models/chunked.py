@@ -10,7 +10,7 @@ chunk c+1 while the host builds the results of chunk c. ``score_batch``
 fills chunks of ``max_batch`` pairs with the mode's score kernel only.
 
 A subclass is a dataclass with the fields ``params``, ``bucket_quantum``,
-``max_batch``, ``dirs_budget`` and ``device``, and supplies
+``max_batch``, ``backend``, ``dirs_budget`` and ``device``, and supplies
 ``_dirs_bytes(bm, bn)`` (one pair's dirs in a bucket), ``_dispatch(a, b,
 la, lb)`` (queue one chunk, return its handles without waiting),
 ``_emit(item, results)`` (wait for a chunk and build its results),
@@ -33,6 +33,16 @@ from cse305_parallel_sequence_alignment_torch.models.batch import (
 )
 
 PHASES = ("prep_ms", "fill_ms", "walk_ms", "d2h_ms", "build_ms")
+# the JAX aligners' backend values: "auto" and "pallas" run the port's
+# kernels; so does "wavefront" where the two JAX routes give one result
+MODE_BACKENDS = ("auto", "pallas", "wavefront")
+
+
+def check_backend(backend, who):
+    """Raise ValueError on a ``backend`` outside ``MODE_BACKENDS``."""
+    if backend not in MODE_BACKENDS:
+        raise ValueError(f"{who}: backend {backend!r}, pick from "
+                         f"{MODE_BACKENDS}")
 
 
 class ChunkedAligner:
@@ -42,8 +52,13 @@ class ChunkedAligner:
     chunks."""
 
     score_width = 4
+    # whether align_batch has a route for backend="wavefront": local's
+    # two JAX routes agree, so its one route serves; semi-global and
+    # overlap need the anti-diagonal dirs route of ROADMAP queue 1 item 15
+    wavefront_dirs = True
 
     def __post_init__(self):
+        check_backend(self.backend, type(self).__name__)
         self._dev = torch.device(self.device)
         if self._dev.type not in ("cpu", "cuda"):
             raise ValueError(f"device {self.device!r}: 'cuda' or 'cpu'")
@@ -88,6 +103,11 @@ class ChunkedAligner:
 
     def align_batch(self, pairs):
         """Full alignments of all pairs, as the mode's result objects."""
+        if self.backend == "wavefront" and not self.wavefront_dirs:
+            raise NotImplementedError(
+                f"{type(self).__name__}(backend='wavefront').align_batch: "
+                "the anti-diagonal dirs route is not ported (ROADMAP queue "
+                "1 item 15); 'auto' and 'pallas' run the row sweep")
         t0 = time.perf_counter()
         self.last_phases = dict.fromkeys(PHASES, 0.0)
         self.last_chunks = 0

@@ -66,7 +66,9 @@ class LocalBatchAligner(ChunkedAligner):
     """Aligns many pairs locally, length-bucketed like BatchAligner.
 
     ``max_batch`` caps pairs per launch and ``dirs_budget`` the bytes of
-    one chunk's dirs. ``device`` is where the kernels run.
+    one chunk's dirs. ``backend`` takes the JAX package's values ("auto",
+    "pallas", "wavefront"); all three run the K9 kernels, since the two
+    JAX routes agree. ``device`` is where the kernels run.
     ``last_phases`` holds the phase times (ms) of the latest
     ``align_batch``: prep and the chain and CIGAR build on the host's
     clock, fill, walk and device-to-host on the device's; ``last_chunks``
@@ -76,6 +78,7 @@ class LocalBatchAligner(ChunkedAligner):
     params: ScoringParams = LOCAL_PARAMS
     bucket_quantum: int = 128
     max_batch: int = 512
+    backend: str = "auto"
     dirs_budget: int = 2 << 30  # align_batch chunk cap (bytes of dirs)
     device: str = "cuda"
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from cse305_parallel_sequence_alignment_torch.core import ScoringParams
 from cse305_parallel_sequence_alignment_torch.models.semiglobal import (
@@ -44,11 +45,19 @@ class OverlapBatchAligner(FreeEndAligner):
     """Aligns many pairs in overlap mode, length-bucketed.
 
     ``max_batch`` caps pairs per launch and ``dirs_budget`` the bytes of
-    one chunk's dirs. ``device`` is where the kernels run."""
+    one chunk's dirs. ``backend``: see ``FreeEndAligner``. ``device`` is
+    where the kernels run.
+
+    A pair with an empty B and a non-empty A gets (score 0.0, table 1,
+    end (1, 0)) from ``align_batch``, the best that its own
+    ``score_batch`` gives (T1 = 0 down column 0): the row-sweep fill
+    K11d, bit-equal to the TPU kernel ``_ov_rowdirs_kernel``, scans column
+    lb only when lb >= 1 and gives -inf there."""
 
     params: ScoringParams = OVERLAP_PARAMS
     bucket_quantum: int = 128
     max_batch: int = 512
+    backend: str = "auto"
     dirs_budget: int = 2 << 30  # align_batch chunk cap (bytes of dirs)
     device: str = "cuda"
 
@@ -56,7 +65,12 @@ class OverlapBatchAligner(FreeEndAligner):
 
     @staticmethod
     def _dirs_fill(a, b, la, lb, params):
-        return overlap_dirs(a, b, la, lb, params)
+        dirs, best = overlap_dirs(a, b, la, lb, params)
+        # an empty B: score_batch's best, (0.0, table 1, end (1, 0))
+        empty_b = ((lb == 0) & (la >= 1))[:, None]
+        fix = torch.zeros(4, device=best.device)  # no host copy a chunk
+        fix[1:3] = 1.0
+        return dirs, torch.where(empty_b, fix, best)
 
     @staticmethod
     def _score_fill(a, b, la, lb, params):

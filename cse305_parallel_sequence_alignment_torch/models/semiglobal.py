@@ -62,9 +62,15 @@ class FreeEndAligner(ChunkedAligner):
     and build of one chunk on the driver of models/chunked.py.
 
     A subclass names its ``mode`` ("semiglobal" or "overlap"), its
-    ``_dirs_fill`` and ``_score_fill`` kernels and its ``_result``."""
+    ``_dirs_fill`` and ``_score_fill`` kernels and its ``_result``.
+    ``backend`` "auto" and "pallas" run the row-sweep dirs fill;
+    "wavefront" runs ``score_batch`` (its fill is the port of the XLA
+    wavefront on every backend) and refuses ``align_batch``, whose JAX
+    route is the anti-diagonal dirs fill, not ported (ROADMAP queue 1
+    item 15)."""
 
     mode = ""
+    wavefront_dirs = False
 
     @staticmethod
     def _dirs_bytes(bm, bn):
@@ -129,11 +135,13 @@ class SemiGlobalBatchAligner(FreeEndAligner):
     """Aligns many (query, target) pairs semi-globally, length-bucketed.
 
     ``max_batch`` caps pairs per launch and ``dirs_budget`` the bytes of
-    one chunk's dirs. ``device`` is where the kernels run."""
+    one chunk's dirs. ``backend``: see ``FreeEndAligner``. ``device`` is
+    where the kernels run."""
 
     params: ScoringParams = FREE_END_PARAMS
     bucket_quantum: int = 128
     max_batch: int = 512
+    backend: str = "auto"
     dirs_budget: int = 2 << 30  # align_batch chunk cap (bytes of dirs)
     device: str = "cuda"
 

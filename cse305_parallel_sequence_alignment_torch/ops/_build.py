@@ -32,7 +32,7 @@ PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 TSALIB = CSRC / "tsalib.cpp"
-KERNELS = ("rowcb", "walk", "longrow", "local", "diag", "banded",
+KERNELS = ("rowcb", "rowfill", "walk", "longrow", "local", "diag", "banded",
            "halostair", "rowscan2", "rowprobe", "micro")  # csrc/<name>.cu
 # mode numbers of csrc/diag.cu and csrc/rowcb.cu
 MODES = {"global": 0, "semiglobal": 1, "overlap": 2}

@@ -85,11 +85,27 @@ def rle_walk_plain(dirs, la, lb, t0, max_rounds, band_lo=None):
     return ent.to(torch.int16).view(torch.uint16), used
 
 
+def row_pitch(dirs):
+    """The row pitch (elements) of (rows, B, cols) dirs whose rows may be
+    padded, as K1's are (ops/rowcb.py ``dirs_pitch``): cell (r, b, c) at
+    ``(r * B + b) * pitch + c``; raise on any other layout."""
+    rows, B, cols = dirs.shape
+    pitch = dirs.stride(1) if B > 1 else max(dirs.stride(0), cols)
+    if (dirs.stride(2) != 1 or pitch < cols
+            or (rows > 1 and dirs.stride(0) != B * pitch)
+            or (B > 1 and dirs.stride(1) != pitch)):
+        raise ValueError(f"dirs must be row-major with padded rows, got "
+                         f"strides {dirs.stride()} for {tuple(dirs.shape)}")
+    return pitch
+
+
 def _check(dirs, la, lb, t0, max_rounds, pairs=None):
     """Raise on walk inputs the kernels do not take; ``pairs`` walked may
-    be fewer than the dirs' pair axis holds (K2')."""
+    be fewer than the dirs' pair axis holds (K2'). The dirs may have a
+    row pitch (``row_pitch``)."""
     if dirs.dtype != torch.uint16 or dirs.dim() != 3:
         raise TypeError("dirs must be a (rows, B, cols) uint16 tensor")
+    row_pitch(dirs)
     B = dirs.shape[1] if pairs is None else pairs
     if B > dirs.shape[1]:
         raise ValueError(f"{B} pairs to walk, dirs hold {dirs.shape[1]}")
@@ -100,6 +116,7 @@ def _check(dirs, la, lb, t0, max_rounds, pairs=None):
     for v in (dirs, la, lb, t0):
         if v.device != dirs.device:
             raise ValueError("all inputs must be on one device")
+    for v in (la, lb, t0):
         if not v.is_contiguous():
             raise ValueError("inputs must be contiguous")
     if max_rounds < 1:
@@ -113,14 +130,15 @@ def _entry():
     """ctypes entry point of csrc/walk.cu."""
     fn = _build.cuda_library("walk").rle_walk
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     return fn
 
 
 def rle_walk(dirs, la, lb, t0, max_rounds, band_lo=None):
     """K2: run-length walk of every pair from (la, lb) in table t0, over
-    row-layout dirs, or band-layout dirs of lower width ``band_lo``.
+    row-layout dirs, or band-layout dirs of lower width ``band_lo``. The
+    dirs may have a row pitch: K1's are a view of (rows, B, pitch).
 
     Returns (entries (max_rounds, B) uint16, zero past each pair's last
     round, and used (1,) int32, the largest round count), both on the
@@ -139,7 +157,7 @@ def rle_walk(dirs, la, lb, t0, max_rounds, band_lo=None):
     with torch.cuda.device(dev):
         err = _entry()(dirs.data_ptr(), la.data_ptr(), lb.data_ptr(),
                        t0.data_ptr(), ent.data_ptr(), used.data_ptr(), B,
-                       nrows, ncols, max_rounds,
+                       nrows, ncols, row_pitch(dirs), max_rounds,
                        -1 if band_lo is None else band_lo,
                        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rle_walk")
@@ -195,7 +213,7 @@ def _group_entry():
     """ctypes entry point of csrc/walk.cu's grouped walk (K2')."""
     fn = _build.cuda_library("walk").group_walk
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     return fn
 
@@ -227,7 +245,7 @@ def group_walk_rle(dirs, la, lb, t0, R_pad, G=8):
     with torch.cuda.device(dev):
         err = _group_entry()(dirs.data_ptr(), la.data_ptr(), lb.data_ptr(),
                              t0.data_ptr(), ent.data_ptr(), used.data_ptr(),
-                             B, Bd, nrows, ncols, R, G,
+                             B, Bd, nrows, ncols, row_pitch(dirs), R, G,
                              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, f"group_walk(G={G})")
     group_walk_rle.launches += 1

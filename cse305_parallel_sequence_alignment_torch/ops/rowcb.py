@@ -12,9 +12,8 @@ both with ``with_runs=True, perm=False``. K4d is ``rowcb_fill`` given a
 ``table``: the ``k1 > 0`` branch of ``_rowcb_kernel`` (pallas_rowcb.py:244,
 f(A[i], B[j]) = table[A[i], B[j]]), and K4s ``submat_score_fill`` the
 score-only ``_submat_kernel`` (ops/pallas_fill.py:1110) with the same
-arithmetic, so its finals equal K4d's. All of them run one row sweep
-(``csrc/rowcb.cu``, one CUDA template with a mode parameter and three
-flags: a table, what it stores a cell, and the omega order):
+arithmetic, so its finals equal K4d's. All of them compute one row
+sweep:
 
 - ``T1 = f(A[i], B[j]) + max3(prev row, j-1)``
 - ``T3 = max(max(T1,T2)(prev, j) - gh, T3(prev, j) - g)``
@@ -44,6 +43,21 @@ Every cell of the bucket is computed, padding included. ``dirs`` is
 (m+1, B, n+1) uint16, cell (i, j) of pair b at ``dirs[i, b, j]``,
 packing [d1 | d2 << 2 | d3 << 4 | after-run code << 6 | run length << 8]
 (the JAX ``with_runs`` encoding) in every mode.
+
+The kernels. K1 and K4d on a card run ``csrc/rowfill.cu``, their
+redesign for the H100: each thread's C columns of the rows in registers,
+one vector store of a thread's words a row into dirs with a row pitch
+of ``round_up(n + 1, 8)`` columns (``rowcb_fill`` returns the view of
+the first n + 1, so its dirs are not contiguous; K2 reads the pitch from
+the strides), and a thread-block cluster of k <= 8 CTAs for each pair
+wider than 4,096 columns (the card's SMs shared out over the pairs).
+``fill_geometry`` picks (C, threads, k) from the bucket's shape. One
+width rule: rows of more than ``CLUSTER_REACH`` columns (8 CTAs' reach)
+run ``csrc/rowcb.cu``'s sweep with its row buffers in global scratch,
+counted in ``rowcb_fill.wide_launches``, and get contiguous dirs. Every
+other fill here is ``csrc/rowcb.cu``'s one CUDA template with a mode
+parameter and three flags: a table, what it stores a cell, and the omega
+order.
 
 K3' ``rowscan_score_fill`` is the port of ``_rowscan_kernel``
 (ops/pallas_fill.py:750): K1's sweep storing nothing, per-pair start
@@ -95,6 +109,64 @@ RUN_CAP = 255
 _BIG = 1 << 30  # above any column or anti-diagonal index
 # dynamic shared memory above which the row buffers go to global scratch
 SMEM_LIMIT = 200 * 1024
+
+# csrc/rowfill.cu's geometry: columns a thread, and for each C the
+# threads a CTA takes and the registers a thread its __launch_bounds__
+# leave (65,536 / (threads x the CTAs an SM they promise)); the portable
+# cluster size, and what one CTA and a cluster hold
+FILL_C = (4, 8, 16)
+FILL_THREADS = {4: 1024, 8: 512, 16: 512}
+FILL_REGS = {4: 64, 8: 64, 16: 128}
+MAX_CLUSTER = 8
+CTA_REACH = FILL_THREADS[16] * 16
+CLUSTER_REACH = MAX_CLUSTER * CTA_REACH
+# an H100 SXM: SMs, and the shared memory an SM and a CTA (static arrays
+# and the 1 KB the runtime reserves) take
+SMS = 132
+SM_SMEM = 228 * 1024
+FILL_STATIC_SMEM = 1024 + 1024 + 256 + 8192 + 1024
+DIRS_PITCH = 8  # dirs row pitch quantum: 16-byte aligned rows
+
+
+def dirs_pitch(n):
+    """The row pitch (columns) of K1's dirs for a bucket of width n."""
+    return -(-(n + 1) // DIRS_PITCH) * DIRS_PITCH
+
+
+def fill_geometry(B, n, k1=0, sms=SMS):
+    """(C, threads, k) of ``csrc/rowfill.cu`` for B pairs of width n under
+    a (k1, k1) table (k1 = 0: none), or None past ``CLUSTER_REACH``
+    columns (the width rule: ``csrc/rowcb.cu``'s sweep takes those).
+
+    Rows that a CTA at C = 4 or 8 covers (up to 4,096 columns) take one
+    CTA a pair and the smallest C whose grid needs the fewest waves over
+    ``sms`` SMs, the CTAs an SM counted at the register cap of the
+    instance's launch bounds (``FILL_REGS``), the 64 warps and 32 CTAs an
+    SM and the shared memory: a floor of what the card holds. Wider rows
+    take C = 16 and a cluster of k CTAs a pair, k the card's SMs shared
+    out over the pairs, at least the fewest CTAs that hold the row and at
+    most ``MAX_CLUSTER``; each CTA takes the fewest whole warps that
+    cover its share. Pure: no card is asked."""
+    ncol = n + 1
+    if ncol > CLUSTER_REACH:
+        return None
+    if ncol > FILL_THREADS[8] * 8:
+        k = min(MAX_CLUSTER, max(-(-ncol // CTA_REACH), sms // max(B, 1)))
+        return 16, 32 * -(-ncol // (32 * 16 * k)), k
+    smem = FILL_STATIC_SMEM + k1 * k1 * 4
+    best = None
+    for C in FILL_C:
+        threads = 32 * -(-ncol // (32 * C))
+        if threads > FILL_THREADS[C]:
+            continue
+        warps = threads // 32
+        per_sm = max(1, min(32, 64 // warps,
+                            65536 // (threads * FILL_REGS[C]),
+                            SM_SMEM // smem))
+        waves = -(-B // (sms * per_sm))
+        if best is None or waves < best[0]:
+            best = (waves, C, threads)
+    return best[1], best[2], 1
 
 
 def _shift(x, fill):
@@ -346,6 +418,64 @@ def _entry():
 
 
 @functools.lru_cache(maxsize=None)
+def _fill_entry():
+    """ctypes entry point of csrc/rowfill.cu: 7 pointers, then B, m, n,
+    pitch, C, threads, k, g, h, match, mismatch, the table pointer, k1,
+    stream."""
+    fn = _build.cuda_library("rowfill").rowfill
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] * 4 + [ctypes.c_void_p, ctypes.c_int,
+                                             ctypes.c_void_p])
+    return fn
+
+
+def fill_occupancy(C, threads, k=1, k1=0, device="cuda"):
+    """(CTAs an SM, clusters of k at once; 0 when k = 1) that CUDA gives
+    the ``csrc/rowfill.cu`` instance of a geometry, under a (k1, k1)
+    table or none."""
+    fn = _build.cuda_library("rowfill").rowfill_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(torch.device(device)):
+        err = fn(C, threads, k, int(k1 > 0), k1, ctypes.byref(per_sm),
+                 ctypes.byref(clusters))
+    _build.check(err, f"rowfill_occupancy(C={C}, threads={threads}, k={k})")
+    return per_sm.value, clusters.value
+
+
+def _fill(a, b, la, lb, st, params, table, geometry):
+    """Launch csrc/rowfill.cu at ``geometry`` (C, threads, k; C = 16 when
+    k > 1) on a checked CUDA bucket; returns (dirs view (m+1, B, n+1) of
+    a (m+1, B, pitch) tensor, finals). ``rowcb_fill`` calls it at
+    ``fill_geometry``'s choice; the card tests and ``chip_smoke.py`` at
+    others. Counts nothing."""
+    B, m = a.shape
+    n = b.shape[1]
+    dev = a.device
+    C, threads, k = geometry
+    k1 = 0 if table is None else table.shape[0]
+    pitch = dirs_pitch(n)
+    out = torch.full((B, 3), NEG_INF, dtype=torch.float32, device=dev)
+    dirs = torch.empty((m + 1, B, pitch), dtype=torch.uint16, device=dev)
+    g, h, match, mismatch = params.astuple()
+    with torch.cuda.device(dev):
+        err = _fill_entry()(
+            a.data_ptr(), b.data_ptr(), la.data_ptr(), lb.data_ptr(),
+            st.data_ptr(), dirs.data_ptr(), out.data_ptr(), B, m, n, pitch,
+            C, threads, k, g, h, match, mismatch,
+            table.data_ptr() if table is not None else None, k1,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err == -1:
+        raise RuntimeError(f"rowfill: a cluster of {k} CTAs of {threads} "
+                           f"threads cannot be co-scheduled on {dev}")
+    _build.check(err, f"rowfill(C={C}, threads={threads}, k={k}"
+                      f"{', table' if k1 else ''})")
+    return dirs[:, :, :n + 1], out
+
+
+@functools.lru_cache(maxsize=None)
 def _trim_entry():
     """ctypes entry point of the P-trim sweep in csrc/rowcb.cu: 5
     pointers, then B, m, n, C, threads, shared bytes, g, h, match,
@@ -427,8 +557,14 @@ def check_table(table, a, b):
 
 def rowcb_fill(a, b, la, lb, st, params, table=None):
     """K1: dirs16+runs fill of a bucket; with a ``table``, K4d (the same
-    fill scoring f(A[i], B[j]) = table[A[i], B[j]]). See the module
-    docstring."""
+    fill scoring f(A[i], B[j]) = table[A[i], B[j]]). Returns (dirs (m+1,
+    B, n+1) uint16, finals (B, 3)); see the module docstring.
+
+    On a card, buckets up to ``CLUSTER_REACH`` columns wide run
+    ``csrc/rowfill.cu`` at ``fill_geometry``'s (C, threads, k) and return
+    a view of pitched dirs; counted in ``rowcb_fill.launches`` (K1) or
+    ``rowcb_fill.table_launches`` (K4d). Wider buckets run the
+    global-scratch sweep of ``csrc/rowcb.cu`` (``wide_launches``)."""
     _build.check_bucket(a, b, la, lb, st)
     if table is not None:
         check_table(table, a, b)
@@ -436,7 +572,13 @@ def rowcb_fill(a, b, la, lb, st, params, table=None):
         if table is not None:
             return matrix_dirs_plain(a, b, la, lb, st, table, params)
         return rowcb_fill_plain(a, b, la, lb, st, params)
-    out = _launch(a, b, la, lb, st, params, "global", table)
+    k1 = 0 if table is None else table.shape[0]
+    geometry = fill_geometry(a.shape[0], b.shape[1], k1)
+    if geometry is None:
+        out = _launch(a, b, la, lb, st, params, "global", table)
+        rowcb_fill.wide_launches += 1
+        return out
+    out = _fill(a, b, la, lb, st, params, table, geometry)
     if table is None:
         rowcb_fill.launches += 1
     else:
@@ -528,6 +670,7 @@ def overlap_dirs(a, b, la, lb, params):
 
 rowcb_fill.launches = 0
 rowcb_fill.table_launches = 0  # K4d
+rowcb_fill.wide_launches = 0  # past CLUSTER_REACH: csrc/rowcb.cu
 submat_score_fill.launches = 0
 rowscan_score_fill.launches = 0
 rowdirs_fill.launches = 0

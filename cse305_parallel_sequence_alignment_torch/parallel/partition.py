@@ -153,6 +153,11 @@ class PartitionedAligner:
     the kernel K8 on CUDA), as the JAX package does.
     ``backend`` is the segment solves' ``BatchAligner`` backend (its
     values and routes; the crossing search does not depend on it).
+    ``long_threshold`` is the JAX package's grid size (cells) past which
+    its "auto" search takes the long fill on a TPU and below which it
+    takes its XLA row scan; both give the same crossing points, and on
+    the port both sides of it run the K6 search. It is validated (an
+    int >= 0) and kept.
     ``last_phases`` holds the host-clock seconds of the latest ``align``:
     the crossing search, the segment solves and the stitch (each ends
     with its results on the host).
@@ -166,6 +171,7 @@ class PartitionedAligner:
     # per-segment direction-matrix budget (bytes) used when p == 0
     mem_budget: int = 1 << 30
     fill_backend: str = "auto"
+    long_threshold: int = 16 * 1024 * 1024
     backend: str = "auto"
     device: str = "cuda"
     # the seq mesh of fill_backend="sharded" (parallel/mesh.py)
@@ -178,6 +184,11 @@ class PartitionedAligner:
         if self.fill_backend not in FILL_BACKENDS:
             raise ValueError(f"fill_backend {self.fill_backend!r}: pick "
                              f"from {FILL_BACKENDS}")
+        if (not isinstance(self.long_threshold, int)
+                or isinstance(self.long_threshold, bool)
+                or self.long_threshold < 0):
+            raise ValueError(f"long_threshold {self.long_threshold!r}: an "
+                             f"int >= 0 (grid cells)")
         self.last_phases = dict.fromkeys(PHASES, 0.0)
 
     def _crossings_fn(self):

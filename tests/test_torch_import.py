@@ -125,7 +125,8 @@ def test_banded_and_matrix_sources_are_the_ports_own(rel):
                                  "probes/knockout.py", "probes/ablate.py",
                                  "probes/lane0.py", "ops/micro.py",
                                  "csrc/micro.cu", "probes/sweep.py",
-                                 "probes/attrib2.py", "probes/micro.py"])
+                                 "probes/attrib2.py", "probes/micro.py",
+                                 "csrc/rowfill.cu"])
 def test_score_fill_probe_sources_are_the_ports_own(rel):
     """K3'', P-trim, P-dual, K2' and the row-step probes (and their probe
     modules) lie under the port and name neither jax nor the JAX package;
@@ -139,6 +140,21 @@ def test_score_fill_probe_sources_are_the_ports_own(rel):
         "cse305_parallel_sequence_alignment_tpu/", "")
     if rel.startswith("csrc/"):
         assert path in _build.sources()
+
+
+def test_top_level_names_cover_the_jax_package():
+    """The JAX package's top-level ``__all__`` is a subset of the port's,
+    and every name of the port's resolves (``SubstitutionMatrix`` among
+    them)."""
+    import cse305_parallel_sequence_alignment_torch as port
+    import cse305_parallel_sequence_alignment_tpu as ref
+    assert set(ref.__all__) <= set(port.__all__)
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
+    from cse305_parallel_sequence_alignment_torch.core import (
+        SubstitutionMatrix,
+    )
+    assert port.SubstitutionMatrix is SubstitutionMatrix
 
 
 def test_cuda_aligner_refuses_cpu_host():
