@@ -16,8 +16,9 @@ P-lane0, P-sweep, P-attrib2) and the op-cost micro-probes (P-micro,
 P-micro2):
 
 1. card, torch and CUDA versions; the kernels' build time; ptxas's
-   registers, stack and spills of each K1/K4d fill instance (none may
-   spill), each row-step probe kernel and each micro-probe kernel;
+   registers, stack and spills of each K1/K4d fill instance and of each
+   register-row K8 and K12d instance (none may spill), each row-step probe
+   kernel and each micro-probe kernel;
 2. each kernel against its plain PyTorch version on the card, bit for
    bit, both timed with CUDA events: K1 dirs16+runs fill (csrc/
    rowfill.cu, its geometry, registers and occupancy printed; the sweep
@@ -41,8 +42,9 @@ P-micro2):
    to their scores;
 4a. K4d and K4s against their plain versions, bit for bit: 8 ragged
     protein pairs with all six start types and one chunk of the matrix
-    path's largest bucket, timed; K4d under ``dna_matrix(1, 0)`` equal to
-    K1 at 256 x 2 kb (``[matrix-kernels]``);
+    path's largest bucket, timed (the codes checked against the table
+    once before, not in the timed window); K4d under ``dna_matrix(1, 0)``
+    equal to K1 at 256 x 2 kb (``[matrix-kernels]``);
 4b. the matrix path, counters set to 0 again: ``BatchAligner(matrix=
     BLOSUM62)`` (g=1, h=11) ``align_batch`` on 4,096 protein pairs of
     250-450 residues (seed 31; three of four B are A with 15%
@@ -70,9 +72,13 @@ P-micro2):
     through the kernel route (``[longseq]``); then K8 against its plain
     version, bit for bit, on the first, a middle and the row-la call of
     each entry of the four-entry run (recorded from a second run, which
-    must give the same finals), each timed, and on every call of a 3 k x
-    12 k pair at g=0.3, h=1.7 and of a 300 x 5,000 pair for each start
-    type (``[longseq-kernels]``);
+    must give the same finals), each timed, the middle one also at other
+    geometries and on the shared-memory staircase; a middle call of the
+    one-card run (98,010 columns, "K8 one entry") likewise; the kernel at
+    a grid of (C, threads) at both widths, with the fit of the geometry
+    rule's model; and on every call of a 3 k x 12 k pair at g=0.3, h=1.7
+    and of a 300 x 5,000 pair for each start type
+    (``[longseq-kernels]``);
 6a. K3' row-sweep score fill, K1' row uint8 dirs fill, K5 skew dirs fill
     and K2s single-step walk (row and skew layouts) against their plain
     versions, bit for bit: 8 ragged pairs up to 2 kb with every start
@@ -119,8 +125,10 @@ P-micro2):
 6c. K12d, K12s and K2 in band layout against their plain versions, bit
     for bit: 256 related pairs x 2 kb at bands (64, 64) and (256, 256), 8
     ragged pairs with every start type, a band too wide for shared
-    memory, and the banded path's own launch, every row of the 97 kb
-    pair at W = 1,329 (``[banded-kernels]``);
+    memory (the shared-memory body), and the banded path's own launch,
+    every row of the 97 kb pair at W = 1,329; each band's K12d also at
+    every C and on the shared-memory body, and K2 on the pitched dirs
+    (``[banded-kernels]``);
 6d. the banded path, counters set to 0 again: ``api.align(mode="banded",
     band=64)`` on step 5's 97 kb pair and its copy (W = 1,329), one
     warm-up and 2 timed runs, then ``BandedAligner`` for the phase split
@@ -180,6 +188,7 @@ available.
 
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
 import subprocess
@@ -1347,6 +1356,98 @@ def check_k8(call, reps=0):
     return err, ms, pms
 
 
+def k8_alternatives(call, reps=3):
+    """K8 on one recorded call at the geometry rule's choice, at the
+    modelled best of each other C and at narrower and wider strips of the
+    rule's C, and the shared-memory staircase: {label: ms}; every
+    alternative's
+    outputs held bit for bit to the rule's (scratch carries, which the
+    repeats advance)."""
+    from cse305_parallel_sequence_alignment_torch.ops import halostair
+
+    a, b, halo, state, fin, *rest = call
+    nc, R = len(b), len(a)
+    geos = {halostair.halostair_geometry(nc, R)}
+    for C in halostair.ROWS_C:
+        cands = sorted((halostair.geometry_cost(nc, R, c, t), c, t)
+                       for c, t in halostair.halostair_geometries(nc)
+                       if c == C)
+        for k in {0, len(cands) // 2, len(cands) - 1} if cands else ():
+            c, t = cands[k][1:]
+            geos.add((c, t, halostair.strips_of(nc, c, t)))
+    want = None
+    times = {}
+    for geo in sorted(geos, key=lambda g: g != halostair.halostair_geometry(
+            nc, R)):
+        s_k, f_k = state.clone(), fin.clone()
+        h_k = halostair._launch(a, b, halo, s_k, f_k, *rest, geometry=geo)
+        got = (h_k, s_k, f_k)
+        if want is None:
+            want = got
+        err = max(max_err(x, y) for x, y in zip(got, want))
+        if err:
+            raise RuntimeError(f"K8 at {geo} differs from the rule's "
+                               f"geometry by {err}")
+        s_t, f_t = state.clone(), fin.clone()
+        _, times[f"C={geo[0]} threads={geo[1]} strips={geo[2]}"] = timed(
+            lambda: halostair._launch(a, b, halo, s_t, f_t, *rest,
+                                      geometry=geo), reps)
+    s_k, f_k = state.clone(), fin.clone()
+    h_k = halostair.halostair_staircase_step(a, b, halo, s_k, f_k, *rest)
+    err = max(max_err(x, y) for x, y in zip((h_k, s_k, f_k), want))
+    if err:
+        raise RuntimeError(f"the shared-memory staircase differs from K8 "
+                           f"by {err}")
+    s_t, f_t = state.clone(), fin.clone()
+    _, times["shared-memory staircase"] = timed(
+        lambda: halostair.halostair_staircase_step(a, b, halo, s_t, f_t,
+                                                   *rest), reps)
+    return times
+
+
+def k8_sweep(R=LONGSEQ_ROWS, widths=(24503, 98010)):
+    """``rows_kernel`` over R rows at the pipeline's block widths (a
+    middle entry of four, and one entry) at a grid of (C, threads), each
+    timed; a least squares fit of ``halostair.geometry_cost``'s model,
+    (R + S - 1) x (a + b x warps) + (S - 1) x hand-off, for each C,
+    printed beside ``ops/halostair.py``'s ``ROW_US`` and ``LINK_US``."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+    from cse305_parallel_sequence_alignment_torch.ops import halostair
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    p = ScoringParams()
+    a = torch.from_numpy(ACGT[rng.integers(0, 4, R)]).to(dev)
+    halo = torch.full((R + 1, 4), float("-inf"), device=dev)
+    pts = {C: [] for C in halostair.ROWS_C}
+    for nc in widths:
+        b = torch.from_numpy(ACGT[rng.integers(0, 4, nc)]).to(dev)
+        state, fin, _ = halostair.halostair_init(0, nc, -1, p, dev)
+        line = []
+        for C in halostair.ROWS_C:
+            for threads in range(128, halostair.ROWS_THREADS[C] + 1, 64):
+                S = halostair.strips_of(nc, C, threads)
+                _, ms = timed(lambda: halostair._launch(
+                    a, b, halo, state, fin, 0, 0, 10 ** 9, -1, p,
+                    geometry=(C, threads, S)), 3)
+                pts[C].append((threads // 32, S, ms * 1e3))
+                line.append(f"({C}, {threads}, {S}) {ms:.4f}")
+        print(f"[longseq-kernels] K8 sweep, {nc} columns x {R} rows, ms: "
+              + "; ".join(line), flush=True)
+    fits = {}
+    for C, rows in pts.items():
+        A = np.array([[R + S - 1, (R + S - 1) * w, S - 1]
+                      for w, S, _ in rows], float)
+        y = np.array([t for *_, t in rows])
+        fits[C] = [round(float(v), 4) for v in np.linalg.lstsq(
+            A, y, rcond=None)[0]]
+    print(f"[longseq-kernels] K8 sweep fit, us (a, b, hand-off) by C: "
+          f"{fits}; in use ROW_US {halostair.ROW_US}, LINK_US "
+          f"{halostair.LINK_US}", flush=True)
+
+
 def phase_longseq_kernels(report, runs, out):
     """K8 against its plain version, bit for bit, on the tensors the long
     pipeline hands it: the 97 kb run on four entries again, outside the
@@ -1357,6 +1458,7 @@ def phase_longseq_kernels(report, runs, out):
     import torch
 
     from cse305_parallel_sequence_alignment_torch.core import ScoringParams
+    from cse305_parallel_sequence_alignment_torch.ops import halostair
     from cse305_parallel_sequence_alignment_torch.parallel import longseq
     from cse305_parallel_sequence_alignment_torch.parallel.mesh import Mesh
 
@@ -1387,6 +1489,11 @@ def phase_longseq_kernels(report, runs, out):
                                f"column {cs}, base {base}")
         rep["max_abs_err"] = max(rep["max_abs_err"], err)
         if base == (C // 2) * LONGSEQ_ROWS and cs > 0 and "ms" not in rep:
+            alts = k8_alternatives(call)
+            print(f"[longseq-kernels] K8 at {nc} columns x {rows} rows "
+                  f"(rule {halostair.halostair_geometry(nc, len(a))}): "
+                  + "; ".join(f"{k} {v:.4f} ms" for k, v in alts.items()),
+                  flush=True)
             rep["ms"], rep["plain_ms"] = ms, pms
             # each input read once, each output written once: a, b, the
             # halo in and out, the carries (2 x nc) and the capture
@@ -1396,6 +1503,36 @@ def phase_longseq_kernels(report, runs, out):
             rep["bound_ms"], rep["bound_by"] = bound(
                 HALOSTAIR_OPS * rows * nc, moved)
     checked = len(calls)
+    # one entry: a middle call over the whole 98 k columns
+    calls1, patch = record_k8(
+        lambda cs, base: base == (C // 2) * LONGSEQ_ROWS)
+    with patch:
+        fin = longseq.longseq_score(long["ea"], long["eb"],
+                                    mesh=Mesh(LONGSEQ_MESHES[0][1]),
+                                    row_chunk=LONGSEQ_ROWS)
+    if not np.array_equal(fin, out[LONGSEQ_MESHES[0][0]][0]):
+        raise RuntimeError("the recorded one-card run differs from the "
+                           "launch window's")
+    for call in calls1:
+        a, b, halo, state, fin_in, cs, base, la = call[:8]
+        err, ms, pms = check_k8(call, reps=3)
+        rows, nc = min(len(a), la - base), len(b)
+        moved = nbytes(a, b) + 2 * nbytes(halo) + 2 * nbytes(state) \
+            + 2 * nbytes(fin_in)
+        bnd = bound(HALOSTAIR_OPS * rows * nc, moved)
+        alts = k8_alternatives(call)
+        print(f"[longseq-kernels] K8 one entry: 97 kb pipeline on one card, "
+              f"rows {base + 1}-{base + rows} x {nc} columns: err {err} "
+              f"{ms:.3f} ms (plain {pms:.1f} ms; bound {bnd[0]:.4f} ms by "
+              f"{bnd[1]}; rule {halostair.halostair_geometry(nc, len(a))}), "
+              f"{rows * nc / ms / 1e6:.2f} GCUPS; "
+              + "; ".join(f"{k} {v:.4f} ms" for k, v in alts.items()),
+              flush=True)
+        if err:
+            raise RuntimeError(f"K8 disagrees with its plain version on one "
+                               f"entry, base {base}")
+    checked += len(calls1)
+    k8_sweep()
     rng = np.random.default_rng(19)
     small = [(NON_DYADIC, -1, 3000, 12000, LONGSEQ_ROWS)] + [
         ({}, st, 300, 5000, 64) for st in (-1, -2, -3, 1, 2, 3)]
@@ -2252,13 +2389,17 @@ def phase_matrix_kernels(report, mdata):
             torch.from_numpy(x).to(dev) for x in
             (*sbucket, np.full(len(sbucket[2]), -1, np.int32))]
         reps = 3 if big else 1
-        (d_k, f_k), msd = timed(
-            lambda: rowcb.rowcb_fill(*args, params, table), reps)
+        # the codes are checked once, here, and not in the timed window:
+        # the check reads their maximum from the card (a host round trip)
+        rowcb.check_table(table, args[0], args[1])
+        rowcb.check_table(table, sargs[0], sargs[1])
+        (d_k, f_k), msd = timed(lambda: rowcb.rowcb_fill(
+            *args, params, table, checked=True), reps)
         (d_p, f_p), pmsd = timed(lambda: rowcb.matrix_dirs_plain(
             *args, table, params), 1, warm=False)
         ed = max(max_err(u16(d_k), u16(d_p)), max_err(f_k, f_p))
-        s_k, mss = timed(
-            lambda: rowcb.submat_score_fill(*sargs, table, params), reps)
+        s_k, mss = timed(lambda: rowcb.submat_score_fill(
+            *sargs, table, params, checked=True), reps)
         s_p, pmss = timed(lambda: rowcb.submat_score_fill_plain(
             *sargs, table, params), 1, warm=False)
         # K4s and K4d agree on the pairs both chunks hold
@@ -2408,6 +2549,33 @@ def band_cells(la, lb, w_lo, w_hi):
     return float(total)
 
 
+def band_alternatives(args, w_lo, w_hi, params, d_k, f_k, reps):
+    """K12d's ``band_rows_kernel`` at each C the band admits, and the PR
+    5 ``band_kernel<true>``, on the same tensors: {label: ms}, each one's
+    dirs and finals held bit for bit to ``d_k``, ``f_k``."""
+    import torch
+
+    from cse305_parallel_sequence_alignment_torch.ops import banded
+
+    W = w_lo + w_hi + 1
+    runs = {f"C={C} threads={banded.band_threads(W, C)}": functools.partial(
+        banded._rows_fill, *args, w_lo, w_hi, params,
+        (C, banded.band_threads(W, C))) for C in banded.ROWS_C
+        if banded.band_threads(W, C) <= banded.ROWS_THREADS[C]}
+    runs["band_kernel"] = functools.partial(banded._launch, *args,
+                                                 w_lo, w_hi, params, True)
+    times = {}
+    for label, fn in runs.items():
+        (d, f), times[label] = timed(fn, reps)
+        err = max(max_err(u16(d), u16(d_k)), max_err(f, f_k))
+        if err:
+            raise RuntimeError(f"K12d {label} differs from the rule's "
+                               f"geometry by {err}")
+        del d
+        torch.cuda.empty_cache()
+    return times
+
+
 def phase_banded_kernels(report, runs):
     """K12s, K12d and K2 in band layout against their plain versions on
     the card, bit for bit: 256 related pairs x 2 kb at bands (64, 64)
@@ -2487,10 +2655,18 @@ def phase_banded_kernels(report, runs):
         (w_p, u_p), pmsw = timed(lambda: device_walk.rle_walk_plain(
             d_k, args[2], args[3], t0, steps, w_lo), 1, warm=False)
         ew = max(max_err(u16(w_k), u16(w_p)), max_err(u_k, u_p))
+        W = w_lo + w_hi + 1
+        geo = banded.band_geometry(len(args[2]), W)
+        alts = "" if geo is None else "; " + "; ".join(
+            f"{k} {v:.3f} ms" for k, v in band_alternatives(
+                args, w_lo, w_hi, params, d_k, f_k, reps).items())
         print(f"[banded-kernels] {name}: K12d err {ed} {msd:.3f} ms (plain "
-              f"{pmsd:.1f} ms); K12s err {es} {mss:.3f} ms (plain "
+              f"{pmsd:.1f} ms; W {W}, "
+              f"{'rule ' + str(geo) if geo else 'band_kernel, global scratch'}"
+              f"{alts}); K12s err {es} {mss:.3f} ms (plain "
               f"{pmss:.1f} ms); K2 band err {ew} rounds {int(u_k[0])} "
-              f"{msw:.3f} ms (plain {pmsw:.1f} ms)", flush=True)
+              f"{msw:.3f} ms (plain {pmsw:.1f} ms; dirs pitch "
+              f"{device_walk.row_pitch(d_k)})", flush=True)
         if ed or es or ew:
             raise RuntimeError(f"a banded kernel disagrees with its plain "
                                f"version on {name}: K12d {ed} K12s {es} K2 "
@@ -2966,7 +3142,8 @@ def main():
                   for k in _build.KERNELS}
         builds["tsalib"] = pool.submit(build, _build.host_library)
         ptxas = {k: pool.submit(_build.resource_usage, k)
-                 for k in ("rowfill", "rowprobe", "micro")}
+                 for k in ("rowfill", "halostair", "banded", "rowprobe",
+                           "micro")}
         done = {k: b.result() for k, b in builds.items()}
         print(f"[build] kernels {_build.KERNELS} and host library built and "
               f"loaded in {time.perf_counter() - t0:.1f} s (each done at: "
@@ -2983,6 +3160,14 @@ def main():
         if len(ROWFILL_USAGE) != 8 or spilled:
             raise RuntimeError(f"csrc/rowfill.cu: 8 instances without a "
                                f"spill expected, got {ROWFILL_USAGE}")
+        # the register-row bodies of K8 and K12d, three instances each
+        for src_name, kern in (("halostair", "rows_kernel"),
+                               ("banded", "band_rows_kernel")):
+            usage = {k: v for k, v in ptxas[src_name].result().items()
+                     if k.startswith(kern + "<")}
+            if len(usage) != 3 or any(v[2] or v[3] for v in usage.values()):
+                raise RuntimeError(f"csrc/{src_name}.cu: 3 {kern} instances "
+                                   f"without a spill expected, got {usage}")
 
     src = f"{PKG}/csrc"
     report = {

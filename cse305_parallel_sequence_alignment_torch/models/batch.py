@@ -73,6 +73,7 @@ from cse305_parallel_sequence_alignment_torch.ops.device_walk import (
 from cse305_parallel_sequence_alignment_torch.ops.diag import skew_dirs_fill
 from cse305_parallel_sequence_alignment_torch.ops.longrow import long_fill
 from cse305_parallel_sequence_alignment_torch.ops.rowcb import (
+    check_codes,
     rowcb_fill,
     rowdirs_fill,
     rowscan_score_fill,
@@ -336,10 +337,12 @@ class BatchAligner:
     def _score_dispatch(self, fill, a, b, la, lb, st, en):
         """Queue the score fill and end choice of one padded chunk on the
         device; returns (scores, tables) device tensors."""
+        if self._table is not None:  # on the host: no wait for the card
+            check_codes(a, b, self._table.shape[0])
         t_a, t_b, t_la, t_lb, t_st, t_en = self._to_dev(a, b, la, lb, st, en)
         if self._table is not None:
             fin = submat_score_fill(t_a, t_b, t_la, t_lb, t_st, self._table,
-                                    self.params)
+                                    self.params, checked=True)
         else:
             fin = fill(t_a, t_b, t_la, t_lb, t_st, self.params)
         tb, sc = _end_choice(fin, t_en, self.params.h)
@@ -408,11 +411,15 @@ class BatchAligner:
         route = self._route
         max_steps = int(la.max(initial=0) + lb.max(initial=0)) + 1
         marks = _Marks(self._dev)
+        kw = {}
+        if self._table is not None:  # on the host: no wait for the card
+            check_codes(a, b, self._table.shape[0])
+            kw["checked"] = True
         t_a, t_b, t_la, t_lb, t_st, t_en = self._to_dev(a, b, la, lb, st,
                                                         en)
         marks.mark()
         dirs, fin = route.fill(t_a, t_b, t_la, t_lb, t_st, self.params,
-                               self._table)
+                               self._table, **kw)
         tb, sc = _end_choice(fin, t_en, self.params.h)
         entries, used = route.walk(dirs, t_la, t_lb, tb, max_steps)
         del dirs

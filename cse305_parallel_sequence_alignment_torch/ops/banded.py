@@ -3,7 +3,11 @@
 ``banded_score`` is the port of the TPU kernel ``_banded_kernel``
 (cse305_parallel_sequence_alignment_tpu/ops/pallas_banded.py:42) and
 ``banded_dirs`` of ``_banded_dirs_kernel`` (same file, :161) with
-``with_runs=True``; both run ``csrc/banded.cu``. The band of a pair is
+``with_runs=True``; both run ``csrc/banded.cu``: K12d its
+``band_rows_kernel`` (rows in registers, one barrier a row, one vector
+store of a thread's words a row) at ``band_geometry``'s (C, threads),
+K12s and bands wider than ``ROWS_REACH`` lanes ``band_kernel`` (rows
+in shared memory or global scratch). The band of a pair is
 ``j in [i - w_lo, i + w_hi]``: lane l in [0, W), W = w_lo + w_hi + 1, of
 row i holds column j = i - w_lo + l, so a cell's diagonal predecessor is
 the same lane of the previous row, its upper one lane l+1 there and its
@@ -16,7 +20,8 @@ lies outside [1, n] are -inf (T3's column 0 holds its boundary). Every
 pair's (0, 0) and (la, lb) must lie inside the band (``band_check``);
 the finals (B, 3) float32 are (T1, T2, T3) at (la, lb). ``dirs`` is
 (m+1, B, W) uint16 with cell (i, j) of pair b at ``dirs[i, b, j - i +
-w_lo]``, packing [d1 | d2 << 2 | d3 << 4 | after-run code << 6 | run
+w_lo]`` (on a card a view of rows pitched to ``dirs_pitch(W - 1)``
+lanes), packing [d1 | d2 << 2 | d3 << 4 | after-run code << 6 | run
 length << 8]; bytes and run state are zero outside each pair's rectangle
 (j <= lb, i <= la), as the TPU kernel masks them. A diagonal run keeps
 its lane, so ``rle_walk(..., band_lo=w_lo)`` (ops/device_walk.py) walks
@@ -50,8 +55,10 @@ from cse305_parallel_sequence_alignment_torch.ops import _build
 from cse305_parallel_sequence_alignment_torch.ops.rowcb import (
     RUN_CAP,
     SMEM_LIMIT,
+    SMS,
     _argmax3,
     _shift,
+    dirs_pitch,
 )
 
 
@@ -192,32 +199,86 @@ def banded_fill_plain(a, b, la, lb, st, w_lo, w_hi, params, want_dirs):
     return (dirs.view(torch.uint16) if want_dirs else None), fin
 
 
-def band_geometry(W, want_dirs):
-    """(C, threads, row_bytes) of a band of W lanes."""
+def sweep_geometry(W, want_dirs):
+    """(C, threads, row_bytes) of ``band_kernel`` (K12s, wide K12d) for a
+    band of W lanes."""
     C = max(4, -(-W // 1024))
     threads = -(-W // (32 * C)) * 32  # whole warps covering W
     row_bytes = (W * (26 if want_dirs else 24) + 15) // 16 * 16
     return C, threads, row_bytes
 
 
+# csrc/banded.cu band_rows_kernel: lanes a thread, the most threads a CTA
+# takes at each (its __launch_bounds__), the registers ptxas gives it
+# (rounded to the allocation's 8), and the widest band it holds
+ROWS_C = (4, 8, 16)
+ROWS_THREADS = {4: 1024, 8: 512, 16: 256}
+ROWS_REGS = {4: 64, 8: 96, 16: 160}
+ROWS_REACH = 4096
+# A band row's time on an H100 (us), a + b * the warps on its SM: fitted
+# to the kernel's times at each C in chip_smoke.py's [banded-kernels]
+# lines (W = 129 and 513 on 256 pairs, 1,329 on one; NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md §6).
+BAND_ROW_US = {4: (0.904, 0.0437), 8: (1.60, 0.035), 16: (3.05, 0.0)}
+
+
+def band_threads(W, C):
+    """The fewest whole warps whose threads hold W lanes at C a thread."""
+    return -(-W // (32 * C)) * 32
+
+
+def band_geometry(B, W):
+    """(C, threads) of ``band_rows_kernel`` for B pairs in a band of W
+    lanes, or None past ``ROWS_REACH`` (``band_kernel`` takes those): the
+    C of least modelled time, ties to the smaller C. A CTA a pair; the
+    CTAs an SM holds (by threads and registers) run at once, and a row
+    costs ``BAND_ROW_US`` at the warps they put on an SM, once a wave.
+    A pure function."""
+    if W > ROWS_REACH:
+        return None
+    best = None
+    for C in ROWS_C:
+        threads = band_threads(W, C)
+        if threads > ROWS_THREADS[C]:
+            continue
+        per_sm = min(32, 2048 // threads,
+                     65536 // (threads * ROWS_REGS[C]))
+        waves = -(-B // (SMS * per_sm))
+        on_sm = min(per_sm, -(-B // SMS)) * threads // 32
+        a, b = BAND_ROW_US[C]
+        cost = waves * (a + b * on_sm)
+        if best is None or cost < best[0]:
+            best = (cost, C, threads)
+    return best[1], best[2]
+
+
 @functools.lru_cache(maxsize=None)
-def _entry():
-    """ctypes entry point of csrc/banded.cu: 8 pointers, then B, m, n,
-    w_lo, W, C, threads, shared bytes, g, h, match, mismatch, stream."""
-    fn = _build.cuda_library("banded").band_fill
+def _entry(name):
+    """ctypes entry point of csrc/banded.cu: ``band_fill`` (8 pointers,
+    then B, m, n, w_lo, W, C, threads, shared bytes, g, h, match,
+    mismatch, stream) or ``band_rows_fill`` (7 pointers, then B, m, n,
+    w_lo, W, pitch, C, threads, g, h, match, mismatch, stream)."""
+    fn = getattr(_build.cuda_library("banded"), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong] + [ctypes.c_float] * 4
-                   + [ctypes.c_void_p])
+    if name == "band_fill":
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                       + [ctypes.c_longlong] + [ctypes.c_float] * 4
+                       + [ctypes.c_void_p])
+    else:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                       + [ctypes.c_float] * 4 + [ctypes.c_void_p])
     return fn
 
 
 def _launch(a, b, la, lb, st, w_lo, w_hi, params, want_dirs):
+    """``band_kernel`` (K12s; K12d past ``ROWS_REACH``) on a checked CUDA
+    bucket; returns (dirs (m+1, B, W) or None, finals). Counts
+    nothing."""
     B, m = a.shape
     n = b.shape[1]
     W = w_lo + w_hi + 1
     dev = a.device
-    C, threads, row_bytes = band_geometry(W, want_dirs)
+    C, threads, row_bytes = sweep_geometry(W, want_dirs)
     smem, scratch = 512, None
     if smem + row_bytes <= SMEM_LIMIT:
         smem += row_bytes
@@ -228,7 +289,7 @@ def _launch(a, b, la, lb, st, w_lo, w_hi, params, want_dirs):
             if want_dirs else None)
     g, h, match, mismatch = params.astuple()
     with torch.cuda.device(dev):
-        err = _entry()(
+        err = _entry("band_fill")(
             a.data_ptr(), b.data_ptr(), la.data_ptr(), lb.data_ptr(),
             st.data_ptr(), dirs.data_ptr() if want_dirs else None,
             out.data_ptr(),
@@ -237,6 +298,30 @@ def _launch(a, b, la, lb, st, w_lo, w_hi, params, want_dirs):
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, f"band_fill({'dirs' if want_dirs else 'score'})")
     return dirs, out
+
+
+def _rows_fill(a, b, la, lb, st, w_lo, w_hi, params, geometry=None):
+    """``band_rows_kernel`` at ``geometry`` (C, threads),
+    ``band_geometry``'s by default, on a checked CUDA bucket; returns
+    (dirs view (m+1, B, W) of a (m+1, B, pitch) tensor, finals). Counts
+    nothing."""
+    B, m = a.shape
+    n = b.shape[1]
+    W = w_lo + w_hi + 1
+    dev = a.device
+    C, threads = geometry or band_geometry(B, W)
+    pitch = dirs_pitch(W - 1)
+    out = torch.full((B, 3), NEG_INF, dtype=torch.float32, device=dev)
+    dirs = torch.empty((m + 1, B, pitch), dtype=torch.uint16, device=dev)
+    g, h, match, mismatch = params.astuple()
+    with torch.cuda.device(dev):
+        err = _entry("band_rows_fill")(
+            a.data_ptr(), b.data_ptr(), la.data_ptr(), lb.data_ptr(),
+            st.data_ptr(), dirs.data_ptr(), out.data_ptr(), B, m, n, w_lo,
+            W, pitch, C, threads, g, h, match, mismatch,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, f"band_rows_fill(C={C}, threads={threads})")
+    return dirs[:, :, :W], out
 
 
 def banded_score(a, b, la, lb, st, w_lo, w_hi, params):
@@ -252,16 +337,24 @@ def banded_score(a, b, la, lb, st, w_lo, w_hi, params):
 
 
 def banded_dirs(a, b, la, lb, st, w_lo, w_hi, params):
-    """K12d: (dirs (m+1, B, W) uint16 band layout, finals (B, 3))."""
+    """K12d: (dirs (m+1, B, W) uint16 band layout, finals (B, 3)). On a
+    card, bands up to ``ROWS_REACH`` lanes run ``band_rows_kernel`` and
+    return a view of pitched rows (counted in ``banded_dirs.launches``);
+    wider ones ``band_kernel`` (``banded_dirs.wide_launches``)."""
     _build.check_bucket(a, b, la, lb, st)
     _check_band(la, lb, w_lo, w_hi)
     if a.device.type == "cpu":
         return banded_fill_plain(a, b, la, lb, st, w_lo, w_hi, params,
                                  want_dirs=True)
-    out = _launch(a, b, la, lb, st, w_lo, w_hi, params, True)
+    if band_geometry(a.shape[0], w_lo + w_hi + 1) is None:
+        out = _launch(a, b, la, lb, st, w_lo, w_hi, params, True)
+        banded_dirs.wide_launches += 1
+        return out
+    out = _rows_fill(a, b, la, lb, st, w_lo, w_hi, params)
     banded_dirs.launches += 1
     return out
 
 
 banded_score.launches = 0
 banded_dirs.launches = 0
+banded_dirs.wide_launches = 0

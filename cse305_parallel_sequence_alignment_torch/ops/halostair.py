@@ -43,12 +43,17 @@ Every cell is a function of its neighbours and of the exact prefix max,
 so the result depends on neither R, the number of mesh entries nor the
 strip width.
 
-The kernel (``csrc/halostair.cu``) is the strip staircase of
-``csrc/longrow.cu``: one CTA a column strip of the block, records
-published per row through global memory. The plain version
-(``halostair_step_plain``) runs the same operations row by row with
-``torch.cummax`` for the prefix max. A CPU tensor goes to the plain
-version; a CUDA tensor launches the kernel or raises.
+The kernel (``csrc/halostair.cu`` ``rows_kernel<C>``) keeps each
+thread's C columns of the rows in registers, makes one pass and crosses
+one barrier a row, and cuts the block into strips (one CTA each, 24 to
+55 at the pipeline's widths) that hand each other a record every row;
+``halostair_geometry`` picks (C, threads, strips). The first design
+(``staircase_kernel``, narrow strips in shared memory) stays callable as
+``halostair_staircase_step`` for comparison on the card; no path
+launches it. The plain version (``halostair_step_plain``) runs the same
+operations row by row with ``torch.cummax`` for the prefix max. A CPU
+tensor goes to the plain version; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -63,6 +68,18 @@ from cse305_parallel_sequence_alignment_torch.ops import _build
 from cse305_parallel_sequence_alignment_torch.ops.longrow import (
     strip_geometry,
 )
+from cse305_parallel_sequence_alignment_torch.ops.rowcb import SMS
+
+# csrc/halostair.cu rows_kernel: columns a thread, and the most threads a
+# strip takes at each (its __launch_bounds__)
+ROWS_C = (4, 8, 16)
+ROWS_THREADS = {4: 512, 8: 512, 16: 256}
+# The row step's time on an H100 (us), a + b * warps of the strip, and
+# the cost of a strip boundary (us): the least squares fit of
+# chip_smoke.py's K8 sweep (256 rows at 24,503 and 98,010 columns, each C
+# at 128 to 512 threads; NVIDIA H100 80GB HBM3, 700 W; PERF.md §6).
+ROW_US = {4: (0.71, 0.0137), 8: (0.94, 0.018), 16: (1.01, 0.036)}
+LINK_US = 0.22
 
 
 def _row0(j, start_type, g, h):
@@ -175,18 +192,98 @@ def halostair_step_plain(a, b, halo_in, state, fin, cs, base, la,
     return halo_out
 
 
+def strips_of(nc, C, threads):
+    """Strips of ``threads * C`` columns that cover ``nc``."""
+    return -(-nc // (threads * C))
+
+
+def geometry_cost(nc, R, C, threads):
+    """Modelled us of a call of R rows at (C, threads): R + S - 1 row
+    steps on the critical path, and S - 1 strip boundaries."""
+    S = strips_of(nc, C, threads)
+    a, b = ROW_US[C]
+    return (R + S - 1) * (a + b * threads / 32) + (S - 1) * LINK_US
+
+
+def halostair_geometries(nc):
+    """Every (C, threads) of ``rows_kernel`` worth a look at ``nc``
+    columns: for each C and strip count up to the card's SMs (a strip
+    each), the fewest whole warps that cover the block in that many
+    strips."""
+    out = set()
+    for C in ROWS_C:
+        s_min = strips_of(nc, C, ROWS_THREADS[C])
+        s_max = max(s_min, min(SMS, -(-nc // (32 * C))))
+        for S in range(s_min, s_max + 1):
+            threads = -(-nc // (S * C * 32)) * 32
+            if threads <= ROWS_THREADS[C]:
+                out.add((C, threads))
+    return sorted(out)
+
+
+@functools.lru_cache(maxsize=256)
+def halostair_geometry(nc, R):
+    """(C, threads, strips) of ``rows_kernel`` for a call of R rows over
+    ``nc`` columns: the least modelled time (``geometry_cost``), ties to
+    fewer strips, then the smaller C. A pure function, cached: the
+    pipeline asks it once a call."""
+    if nc < 1 or R < 1:
+        raise ValueError(f"no cells: nc {nc}, R {R}")
+    C, threads = min(halostair_geometries(nc), key=lambda g: (
+        geometry_cost(nc, R, *g), strips_of(nc, *g), g[0]))
+    return C, threads, strips_of(nc, C, threads)
+
+
 @functools.lru_cache(maxsize=None)
-def _entry():
-    """ctypes entry point of csrc/halostair.cu."""
-    fn = _build.cuda_library("halostair").halostair_step
+def _entry(name):
+    """ctypes entry point of csrc/halostair.cu: ``halostair_step`` (8
+    pointers, 10 ints, 4 floats, stream) or the first design's
+    ``halostair_staircase_step`` (8 pointers, 10 ints, shared bytes, 4
+    floats, stream)."""
+    fn = getattr(_build.cuda_library("halostair"), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
-                   + [ctypes.c_longlong] + [ctypes.c_float] * 4
+    ints = [ctypes.c_int] * 10
+    if name != "halostair_step":
+        ints.append(ctypes.c_longlong)
+    fn.argtypes = ([ctypes.c_void_p] * 8 + ints + [ctypes.c_float] * 4
                    + [ctypes.c_void_p])
     return fn
 
 
-def _launch(a, b, halo_in, state, fin, cs, base, la, start_type, params):
+def _launch(a, b, halo_in, state, fin, cs, base, la, start_type, params,
+            geometry=None):
+    """Launch ``rows_kernel`` at ``geometry`` (C, threads, strips),
+    ``halostair_geometry``'s by default; returns ``halo_out``. Counts
+    nothing (``halostair_step`` does)."""
+    R, nc = a.shape[0], b.shape[0]
+    dev = a.device
+    C, threads, nstrips = geometry or halostair_geometry(nc, R)
+    halo_out = torch.full((R + 1, 4), NEG_INF, dtype=torch.float32,
+                          device=dev)
+    # the strips' link lines (16 bytes a row), then the CTA ticket
+    link = torch.zeros((max(nstrips - 1, 1) * (R + 1) + 1, 4),
+                       dtype=torch.int32, device=dev)
+    rows = min(R, la - base)
+    cap = la - base if la - base <= R else 0
+    g, h, match, mismatch = params.astuple()
+    with torch.cuda.device(dev):
+        err = _entry("halostair_step")(
+            a.data_ptr(), b.data_ptr(), halo_in.data_ptr(),
+            halo_out.data_ptr(), state.data_ptr(), fin.data_ptr(),
+            link.data_ptr(), link[-1].data_ptr(), nc, R, rows, cap, cs,
+            base, start_type, C, threads, nstrips, g, h, match, mismatch,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, f"halostair_step(C={C}, threads={threads}, "
+                      f"strips={nstrips})")
+    return halo_out
+
+
+def halostair_staircase_step(a, b, halo_in, state, fin, cs, base, la,
+                             start_type, params):
+    """The first design (``staircase_kernel``) on a CUDA call, for
+    comparison on the card only: the same outputs as ``halostair_step``.
+    Counts nothing."""
+    _check(a, b, halo_in, state, fin, base, la)
     R, nc = a.shape[0], b.shape[0]
     dev = a.device
     C, threads, nstrips = strip_geometry(1, nc, dev)
@@ -202,13 +299,13 @@ def _launch(a, b, halo_in, state, fin, cs, base, la, start_type, params):
     cap = la - base if la - base <= R else 0
     g, h, match, mismatch = params.astuple()
     with torch.cuda.device(dev):
-        err = _entry()(
+        err = _entry("halostair_staircase_step")(
             a.data_ptr(), b.data_ptr(), halo_in.data_ptr(),
             halo_out.data_ptr(), state.data_ptr(), fin.data_ptr(),
             rec.data_ptr(), cnt.data_ptr(), nc, R, rows, cap, cs, base,
             start_type, C, threads, nstrips, smem, g, h, match, mismatch,
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "halostair_step")
+    _build.check(err, "halostair_staircase_step")
     return halo_out
 
 

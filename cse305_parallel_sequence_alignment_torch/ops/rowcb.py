@@ -532,12 +532,15 @@ def _launch(a, b, la, lb, st, params, mode, table=None, kind=DIRS16,
     return dirs, out
 
 
-def check_table(table, a, b):
+def check_table(table, a, b, codes=True):
     """Raise unless ``table`` is a contiguous (k1, k1) float32 tensor on
     the codes' device with 2 <= k1 <= 255 (the kernels keep codes in
-    uint8 with 255 as the column-0 sentinel), and every code of ``a`` and
-    ``b`` (``SubstitutionMatrix.encode`` codes, padded with its pad code)
-    indexes it: the kernels read the table unchecked."""
+    uint8 with 255 as the column-0 sentinel), and, with ``codes``, every
+    code of ``a`` and ``b`` (``SubstitutionMatrix.encode`` codes, padded
+    with its pad code) indexes it: the kernels read the table unchecked.
+    The code check reads the codes' maximum, which waits for the card;
+    a caller that checked its codes on the host (``check_codes``) passes
+    ``codes=False``."""
     if table.dtype != torch.float32 or table.dim() != 2 or \
             table.shape[0] != table.shape[1]:
         raise ValueError(f"table must be (k1, k1) float32, got "
@@ -548,17 +551,28 @@ def check_table(table, a, b):
                          f"kernels take 2 to 255")
     if table.device != a.device or not table.is_contiguous():
         raise ValueError("table must be contiguous, on the codes' device")
-    top = max((int(x.max()) for x in (a, b) if x.numel()), default=0)
+    if codes:
+        check_codes(a, b, k1)
+
+
+def check_codes(a, b, k1):
+    """Raise unless every code of ``a`` and ``b`` (tensors or numpy
+    arrays) is below ``k1``, the codes a table of k1 rows indexes."""
+    top = max((int(x.max()) for x in (a, b) if 0 not in x.shape),
+              default=0)
     if top >= k1:
         raise ValueError(f"code {top} does not index a table of {k1} codes: "
                          f"encode with SubstitutionMatrix.encode and pad "
                          f"with its pad_code")
 
 
-def rowcb_fill(a, b, la, lb, st, params, table=None):
+def rowcb_fill(a, b, la, lb, st, params, table=None, checked=False):
     """K1: dirs16+runs fill of a bucket; with a ``table``, K4d (the same
     fill scoring f(A[i], B[j]) = table[A[i], B[j]]). Returns (dirs (m+1,
-    B, n+1) uint16, finals (B, 3)); see the module docstring.
+    B, n+1) uint16, finals (B, 3)); see the module docstring. With
+    ``checked`` the caller vouches that its codes index the table (it ran
+    ``check_codes`` on the host), and the fill does not read the codes'
+    maximum from the card.
 
     On a card, buckets up to ``CLUSTER_REACH`` columns wide run
     ``csrc/rowfill.cu`` at ``fill_geometry``'s (C, threads, k) and return
@@ -567,7 +581,7 @@ def rowcb_fill(a, b, la, lb, st, params, table=None):
     global-scratch sweep of ``csrc/rowcb.cu`` (``wide_launches``)."""
     _build.check_bucket(a, b, la, lb, st)
     if table is not None:
-        check_table(table, a, b)
+        check_table(table, a, b, codes=not checked)
     if a.device.type == "cpu":
         if table is not None:
             return matrix_dirs_plain(a, b, la, lb, st, table, params)
@@ -586,11 +600,12 @@ def rowcb_fill(a, b, la, lb, st, params, table=None):
     return out
 
 
-def submat_score_fill(a, b, la, lb, st, table, params):
+def submat_score_fill(a, b, la, lb, st, table, params, checked=False):
     """K4s: finals (B, 3) of a bucket under a substitution ``table``; the
-    K4d sweep storing no dirs, so the finals are K4d's bit for bit."""
+    K4d sweep storing no dirs, so the finals are K4d's bit for bit.
+    ``checked`` as for ``rowcb_fill``."""
     _build.check_bucket(a, b, la, lb, st)
-    check_table(table, a, b)
+    check_table(table, a, b, codes=not checked)
     if a.device.type == "cpu":
         return submat_score_fill_plain(a, b, la, lb, st, table, params)
     out = _launch(a, b, la, lb, st, params, "global", table,

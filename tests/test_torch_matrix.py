@@ -9,6 +9,8 @@ cells of a padded bucket are compared (padded cells add the table's pad
 score, -1e9).
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -296,3 +298,15 @@ def test_matrix_kernels_match_plain_on_card():
         assert torch.equal(s_k, submat_score_fill_plain(*args, table,
                                                         params))
         assert torch.equal(s_k, f_k)
+
+
+@pytest.mark.parametrize("method", ["align_batch", "score_batch"])
+def test_aligner_refuses_codes_outside_the_table(method):
+    """The aligner checks a chunk's codes on the host, before its fill
+    (which then skips the check that reads the codes' maximum from the
+    card), and refuses a code past the table as ``rowcb_fill`` does."""
+    al = BatchAligner(matrix=TSTV, device="cpu")
+    raw = lambda self, s: np.frombuffer(bytes(s), np.uint8)  # noqa: E731
+    with mock.patch.object(SubstitutionMatrix, "encode", raw):
+        with pytest.raises(ValueError, match="does not index a table of 5"):
+            getattr(al, method)([("ACGT", "ACGGT"), ("GATTACA", "GATACA")])
