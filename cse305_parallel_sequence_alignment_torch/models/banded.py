@@ -24,7 +24,6 @@ from cse305_parallel_sequence_alignment_torch.core import (
     encode_seq,
     end_table_choice,
 )
-from cse305_parallel_sequence_alignment_torch.models.batch import _Marks
 from cse305_parallel_sequence_alignment_torch.models.chunked import (
     check_backend,
 )
@@ -35,6 +34,7 @@ from cse305_parallel_sequence_alignment_torch.ops.banded import (
     banded_score,
 )
 from cse305_parallel_sequence_alignment_torch.ops.device_walk import rle_walk
+from cse305_parallel_sequence_alignment_torch.utils.observability import Marks
 
 PHASES = ("fill_ms", "walk_ms", "d2h_ms", "replay_ms", "render_ms")
 
@@ -108,7 +108,7 @@ class BandedAligner:
         ea, eb = _codes(a), _codes(b)
         m, n = len(ea), len(eb)
         args = self._bucket(ea, eb)
-        marks = _Marks(self._dev)
+        marks = Marks(self._dev)
         marks.mark()
         dirs, fin = banded_dirs(*args, self.w_lo, self.w_hi, self.params)
         f = fin[0].cpu().tolist()

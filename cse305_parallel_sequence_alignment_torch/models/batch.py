@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import time
+import itertools
 import typing
 
 import numpy as np
@@ -79,6 +79,11 @@ from cse305_parallel_sequence_alignment_torch.ops.rowcb import (
     rowscan_score_fill,
     score_fill,
     submat_score_fill,
+)
+from cse305_parallel_sequence_alignment_torch.utils import observability
+from cse305_parallel_sequence_alignment_torch.utils.observability import (
+    Marks,
+    PhaseTimer,
 )
 
 
@@ -209,34 +214,12 @@ def _end_choice(fin, en, h):
     return tb, torch.where(forced, sc_forced, sc_free)
 
 
-class _Marks:
-    """Timestamps on the aligner's device: CUDA events on a card (read
-    once the host waited for the last one), the host clock on the CPU,
-    where every call returns finished."""
-
-    def __init__(self, device):
-        self.device = device
-        self.cuda = device.type == "cuda"
-        self.marks = []
-
-    def mark(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record(torch.cuda.current_stream(self.device))
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def wait(self):
-        if self.cuda:
-            self.marks[-1].synchronize()
-
-    def ms(self, k):
-        a, b = self.marks[k], self.marks[k + 1]
-        return a.elapsed_time(b) if self.cuda else (b - a) * 1e3
-
-
-PHASES = ("fill_walk_ms", "d2h_ms", "replay_ms", "render_ms")
+PHASES = ("align_batch_ms", "prep_ms", "upload_ms", "dispatch_ms",
+          "fill_walk_ms", "d2h_ms", "gap_ms", "wait_ms", "replay_ms",
+          "render_ms")
+COUNTERS = ("chunks", "fill_ctas", "fill_sm_slots")
+_ZEROS = {**dict.fromkeys(PHASES, 0.0), **dict.fromkeys(COUNTERS, 0)}
+_CALLS = itertools.count()  # the call id of the profiler ranges
 
 
 @dataclasses.dataclass
@@ -248,9 +231,37 @@ class BatchAligner:
     dirs array; ``align_batch`` shrinks its chunks to fit. ``backend``
     picks the kernels (see the module docstring: "auto"/"pallas",
     "pallas_rowscan", "wavefront", or the port's "rowdirs"). ``device`` is
-    where the kernels run. ``last_phases`` holds the phase times (ms) of
-    the latest ``align_batch``: fill+walk and device-to-host on the
-    device's clock, replay and render on the host's.
+    where the kernels run.
+
+    ``last_phases`` holds the totals of the latest ``align_batch``
+    (``observability.PhaseTimer``), summed over its chunks. Times in ms,
+    on the host's clock (``time.perf_counter``) unless marked:
+
+    - ``align_batch_ms``: the whole call;
+    - ``prep_ms``: encode, parity swap and buckets, then a chunk's padded
+      arrays, start and end types and, under a matrix, its code check;
+    - ``upload_ms``: a chunk's host-to-device copies (``_to_dev``);
+    - ``dispatch_ms``: queueing a chunk's fill, end choice, walk and
+      device-to-host copies;
+    - ``fill_walk_ms``: fill + end choice + walk, device clock (CUDA
+      events; the host clock on the CPU);
+    - ``d2h_ms``: the copies of the walk rounds, tables and scores to the
+      host, device clock;
+    - ``gap_ms``: device clock, for each chunk after the first: from the
+      previous chunk's copies to the host to this chunk's fill, i.e. the
+      card's time on this chunk's uploads and its wait for the host;
+    - ``wait_ms``: the host's wait for a chunk's copies, and the fetch of
+      any rounds past the shipped cap;
+    - ``replay_ms``, ``render_ms``: the native replay (and chains) and the
+      rendered rows.
+
+    Counts: ``chunks`` dispatched; ``fill_ctas`` and ``fill_sm_slots``,
+    the CTAs of each ``csrc/rowfill.cu`` launch (K1, K4d) and the card's
+    SMs once a launch (``ops/rowcb.py`` ``rowcb_fill``; 0 on the CPU).
+    While a ``torch.profiler`` records, each span is also the range
+    ``seqalign.<name>`` (``align_batch``, ``prep``, ``upload``,
+    ``dispatch``, ``wait``, ``replay``, ``render``), the call and chunk
+    ids its input (``utils/observability.py``).
     """
 
     params: ScoringParams = ScoringParams()
@@ -297,7 +308,8 @@ class BatchAligner:
                     "the kernels take at most 254")
             self._table = torch.from_numpy(self.matrix.table()).to(
                 self._dev)
-        self.last_phases = dict.fromkeys(PHASES, 0.0)
+        self.last_phases = dict(_ZEROS)
+        self._tail = (None, None)  # (recorder, Marks) of the last chunk
 
     def _prep(self, pairs):
         enc_a = _encode_many([p[0] for p in pairs])
@@ -367,30 +379,36 @@ class BatchAligner:
         if traceback_mode not in ("parity", "full"):
             raise ValueError(
                 f"traceback_mode {traceback_mode!r}: 'parity' or 'full'")
-        enc_a, enc_b, buckets = self._prep(pairs)
-        results: list = [None] * len(pairs)
-        self.last_phases = dict.fromkeys(PHASES, 0.0)
-        pending: list = []
-        for key, idxs in buckets.items():
-            step = self.chunk_size(key, len(idxs))
-            for s in range(0, len(idxs), step):
-                chunk = idxs[s: s + step]
-                a, b, la, lb = _bucket_arrays(enc_a, enc_b, chunk, key,
-                                              self.matrix)
-                st = np.full(len(chunk), self.start_type, np.int32)
-                en = np.full(len(chunk), self.end_type, np.int32)
-                if start_types is not None:
-                    st[:] = [start_types[k] for k in chunk]
-                if end_types is not None:
-                    en[:] = [end_types[k] for k in chunk]
-                pending.append(
-                    (chunk, la, lb, self._dispatch(a, b, la, lb, st, en)))
-                while len(pending) > 1:
-                    self._emit_chunk(pending.pop(0), enc_a, enc_b, results,
-                                     offsets, traceback_mode)
-        while pending:
-            self._emit_chunk(pending.pop(0), enc_a, enc_b, results,
-                             offsets, traceback_mode)
+        timer = PhaseTimer(_ZEROS, call=next(_CALLS))
+        self.last_phases = timer.totals
+        with timer, timer.span("align_batch"):
+            with timer.span("prep"):
+                enc_a, enc_b, buckets = self._prep(pairs)
+            results: list = [None] * len(pairs)
+            pending: list = []
+            for key, idxs in buckets.items():
+                step = self.chunk_size(key, len(idxs))
+                for s in range(0, len(idxs), step):
+                    c = timer.totals["chunks"]
+                    timer.add("chunks", 1)
+                    chunk = idxs[s: s + step]
+                    with timer.span("prep", chunk=c):
+                        a, b, la, lb = _bucket_arrays(enc_a, enc_b, chunk,
+                                                      key, self.matrix)
+                        st = np.full(len(chunk), self.start_type, np.int32)
+                        en = np.full(len(chunk), self.end_type, np.int32)
+                        if start_types is not None:
+                            st[:] = [start_types[k] for k in chunk]
+                        if end_types is not None:
+                            en[:] = [end_types[k] for k in chunk]
+                    pending.append((c, chunk, la, lb,
+                                    self._dispatch(a, b, la, lb, st, en, c)))
+                    while len(pending) > 1:
+                        self._emit_chunk(pending.pop(0), enc_a, enc_b,
+                                         results, offsets, traceback_mode)
+            while pending:
+                self._emit_chunk(pending.pop(0), enc_a, enc_b, results,
+                                 offsets, traceback_mode)
         return results
 
     def chunk_size(self, key, count):
@@ -402,77 +420,88 @@ class BatchAligner:
         return chunk_size(count, self._route.dirs_bytes(*key), self.max_batch,
                           self.dirs_budget, split_two=True)
 
-    def _dispatch(self, a, b, la, lb, st, en):
+    def _dispatch(self, a, b, la, lb, st, en, index=0):
         """Queue fill, end choice, walk and the device-to-host copies of
-        one chunk on the current stream; returns the handles without
-        waiting for the device. The fused route walks K1's dirs16+runs
-        with K2; "rowdirs" and "wavefront" walk their uint8 dirs with
-        K2s."""
+        chunk ``index`` of the call on the current stream; returns the
+        handles without waiting for the device. The fused route walks
+        K1's dirs16+runs with K2; "rowdirs" and "wavefront" walk their
+        uint8 dirs with K2s."""
         route = self._route
+        timer = observability.active()
         max_steps = int(la.max(initial=0) + lb.max(initial=0)) + 1
-        marks = _Marks(self._dev)
+        marks = Marks(self._dev)
         kw = {}
         if self._table is not None:  # on the host: no wait for the card
-            check_codes(a, b, self._table.shape[0])
+            with timer.span("prep", chunk=index):
+                check_codes(a, b, self._table.shape[0])
             kw["checked"] = True
-        t_a, t_b, t_la, t_lb, t_st, t_en = self._to_dev(a, b, la, lb, st,
-                                                        en)
-        marks.mark()
-        dirs, fin = route.fill(t_a, t_b, t_la, t_lb, t_st, self.params,
-                               self._table, **kw)
-        tb, sc = _end_choice(fin, t_en, self.params.h)
-        entries, used = route.walk(dirs, t_la, t_lb, tb, max_steps)
-        del dirs
-        marks.mark()
-        # the capped prefix of the rounds ships with the scores; the whole
-        # buffer stays on the device for the rare overflow
-        cap = min(max_steps, max(256, max_steps // route.ship))
-        pin = self._dev.type == "cuda"
-        host = []
-        for x in (entries[:cap], used, tb, sc):
-            buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=pin)
-            buf.copy_(x, non_blocking=pin)
-            host.append(buf)
-        marks.mark()
-        return entries, host, marks, max_steps
+        with timer.span("upload", chunk=index):
+            t_a, t_b, t_la, t_lb, t_st, t_en = self._to_dev(a, b, la, lb,
+                                                            st, en)
+        with timer.span("dispatch", chunk=index):
+            marks.mark()
+            dirs, fin = route.fill(t_a, t_b, t_la, t_lb, t_st, self.params,
+                                   self._table, **kw)
+            tb, sc = _end_choice(fin, t_en, self.params.h)
+            entries, used = route.walk(dirs, t_la, t_lb, tb, max_steps)
+            del dirs
+            marks.mark()
+            # the capped prefix of the rounds ships with the scores; the
+            # whole buffer stays on the device for the rare overflow
+            cap = min(max_steps, max(256, max_steps // route.ship))
+            pin = self._dev.type == "cuda"
+            host = []
+            for x in (entries[:cap], used, tb, sc):
+                buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=pin)
+                buf.copy_(x, non_blocking=pin)
+                host.append(buf)
+            marks.mark()
+        # the previous chunk of this call on this device: gap_ms
+        prev = self._tail[1] if self._tail[0] is timer else None
+        self._tail = (timer, marks)
+        return entries, host, marks, prev, index
 
     def _collect(self, handles, la, lb, mode, offsets, chunk):
         """Wait for a dispatched chunk, fetch the overflow rounds if the
         walk ran past the shipped cap, and replay them by the route:
         run-length entries natively, K2s op streams with
         ``replay_steps``."""
-        entries_d, (ent_h, used_h, tb_h, sc_h), marks, _ = handles
-        marks.wait()
-        self.last_phases["fill_walk_ms"] += marks.ms(0)
-        self.last_phases["d2h_ms"] += marks.ms(1)
-        used = int(used_h[0])
-        ent = ent_h.numpy()
-        if used > ent.shape[0]:
-            ent = entries_d[:used].cpu().numpy()
+        entries_d, (ent_h, used_h, tb_h, sc_h), marks, prev, index = handles
+        timer = observability.active()
+        with timer.span("wait", chunk=index):
+            marks.wait()
+            used = int(used_h[0])
+            ent = ent_h.numpy()
+            if used > ent.shape[0]:
+                ent = entries_d[:used].cpu().numpy()
+        timer.add("fill_walk_ms", marks.ms(0))
+        timer.add("d2h_ms", marks.ms(1))
+        if prev is not None:
+            timer.add("gap_ms", marks.since(prev))
         tables = tb_h.numpy()
-        t0 = time.perf_counter()
-        tt, ii, jj, lens = self._route.replay(ent, used, la, lb, tables, mode,
-                                              offsets, chunk)
-        chains = [LazyChain(tt[r, : lens[r]].copy(), ii[r, : lens[r]].copy(),
-                            jj[r, : lens[r]].copy())
-                  for r in range(len(chunk))]
-        self.last_phases["replay_ms"] += (time.perf_counter() - t0) * 1e3
+        with timer.span("replay", chunk=index):
+            tt, ii, jj, lens = self._route.replay(ent, used, la, lb, tables,
+                                                  mode, offsets, chunk)
+            chains = [LazyChain(tt[r, : lens[r]].copy(),
+                                ii[r, : lens[r]].copy(),
+                                jj[r, : lens[r]].copy())
+                      for r in range(len(chunk))]
         arrays = (tt, ii, jj, lens) if offsets is None else None
         return chains, arrays, tables, sc_h.numpy()
 
     def _emit_chunk(self, item, enc_a, enc_b, results, offsets, mode):
-        chunk, la, lb, handles = item
+        index, chunk, la, lb, handles = item
         chains, arrays, tables, scores = self._collect(
             handles, la, lb, mode, offsets, chunk)
-        t0 = time.perf_counter()
-        for r, k in enumerate(chunk):
-            row_a = row_b = None
-            if arrays is not None:  # offsets: the caller renders
-                tt, ii, jj, lens = arrays
-                L = int(lens[r])
-                row_a, row_b = walker.render(enc_a[k], enc_b[k], tt[r, :L],
-                                             ii[r, :L], jj[r, :L])
-            results[k] = AlignmentResult(
-                score=float(scores[r]), chain=chains[r], aligned_a=row_a,
-                aligned_b=row_b, end_table=int(tables[r]))
-        self.last_phases["render_ms"] += (time.perf_counter() - t0) * 1e3
+        with observability.active().span("render", chunk=index):
+            for r, k in enumerate(chunk):
+                row_a = row_b = None
+                if arrays is not None:  # offsets: the caller renders
+                    tt, ii, jj, lens = arrays
+                    L = int(lens[r])
+                    row_a, row_b = walker.render(enc_a[k], enc_b[k],
+                                                 tt[r, :L], ii[r, :L],
+                                                 jj[r, :L])
+                results[k] = AlignmentResult(
+                    score=float(scores[r]), chain=chains[r], aligned_a=row_a,
+                    aligned_b=row_b, end_table=int(tables[r]))

@@ -29,7 +29,6 @@ from cse305_parallel_sequence_alignment_torch.core import (
     LazyChain,
     ScoringParams,
 )
-from cse305_parallel_sequence_alignment_torch.models.batch import _Marks
 from cse305_parallel_sequence_alignment_torch.models.chunked import (
     ChunkedAligner,
 )
@@ -44,6 +43,7 @@ from cse305_parallel_sequence_alignment_torch.ops.local import (
     sw_dirs,
     sw_score,
 )
+from cse305_parallel_sequence_alignment_torch.utils.observability import Marks
 
 
 @dataclasses.dataclass
@@ -102,7 +102,7 @@ class LocalBatchAligner(ChunkedAligner):
         """Queue fill, walk and the device-to-host copies of one chunk on
         the current stream; returns the handles without waiting."""
         max_steps = max(1, int(la.max(initial=0)) + int(lb.max(initial=0)))
-        marks = _Marks(self._dev)
+        marks = Marks(self._dev)
         t_a, t_b, t_la, t_lb = self._to_dev(a, b, la, lb)
         marks.mark()
         best, dirs = sw_dirs(t_a, t_b, t_la, t_lb, self.params)

@@ -31,7 +31,6 @@ from cse305_parallel_sequence_alignment_torch.core import (
     LazyChain,
     ScoringParams,
 )
-from cse305_parallel_sequence_alignment_torch.models.batch import _Marks
 from cse305_parallel_sequence_alignment_torch.models.chunked import (
     ChunkedAligner,
 )
@@ -43,6 +42,7 @@ from cse305_parallel_sequence_alignment_torch.ops.diag import (
 from cse305_parallel_sequence_alignment_torch.ops.rowcb import (
     semiglobal_dirs,
 )
+from cse305_parallel_sequence_alignment_torch.utils.observability import Marks
 
 FREE_END_PARAMS = ScoringParams(g=1.0, h=2.0, match=1.0, mismatch=-1.0)
 
@@ -80,7 +80,7 @@ class FreeEndAligner(ChunkedAligner):
         """Queue fill, walk and the device-to-host copies of one chunk on
         the current stream; returns the handles without waiting."""
         max_steps = int(la.max(initial=0)) + int(lb.max(initial=0)) + 1
-        marks = _Marks(self._dev)
+        marks = Marks(self._dev)
         t_a, t_b, t_la, t_lb = self._to_dev(a, b, la, lb)
         marks.mark()
         dirs, best = self._dirs_fill(t_a, t_b, t_la, t_lb, self.params)

@@ -104,6 +104,7 @@ from cse305_parallel_sequence_alignment_torch.ops.diag import (  # noqa: F401
     score_fill,
     score_fill_plain,
 )
+from cse305_parallel_sequence_alignment_torch.utils import observability
 
 RUN_CAP = 255
 _BIG = 1 << 30  # above any column or anti-diagonal index
@@ -445,6 +446,12 @@ def fill_occupancy(C, threads, k=1, k1=0, device="cuda"):
     return per_sm.value, clusters.value
 
 
+@functools.lru_cache(maxsize=None)
+def _card_sms(device):
+    """The SMs of a CUDA ``device`` (a ``torch.device`` with its index)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _fill(a, b, la, lb, st, params, table, geometry):
     """Launch csrc/rowfill.cu at ``geometry`` (C, threads, k; C = 16 when
     k > 1) on a checked CUDA bucket; returns (dirs view (m+1, B, n+1) of
@@ -577,8 +584,11 @@ def rowcb_fill(a, b, la, lb, st, params, table=None, checked=False):
     On a card, buckets up to ``CLUSTER_REACH`` columns wide run
     ``csrc/rowfill.cu`` at ``fill_geometry``'s (C, threads, k) and return
     a view of pitched dirs; counted in ``rowcb_fill.launches`` (K1) or
-    ``rowcb_fill.table_launches`` (K4d). Wider buckets run the
-    global-scratch sweep of ``csrc/rowcb.cu`` (``wide_launches``)."""
+    ``rowcb_fill.table_launches`` (K4d), and in the active recorder
+    (``utils/observability.count``) as ``fill_ctas`` (B x k, the CTAs
+    of the launch) and ``fill_sm_slots`` (the card's SMs). Wider buckets
+    run the global-scratch sweep of ``csrc/rowcb.cu``
+    (``wide_launches``)."""
     _build.check_bucket(a, b, la, lb, st)
     if table is not None:
         check_table(table, a, b, codes=not checked)
@@ -593,6 +603,8 @@ def rowcb_fill(a, b, la, lb, st, params, table=None, checked=False):
         rowcb_fill.wide_launches += 1
         return out
     out = _fill(a, b, la, lb, st, params, table, geometry)
+    observability.count("fill_ctas", a.shape[0] * geometry[2])
+    observability.count("fill_sm_slots", _card_sms(a.device))
     if table is None:
         rowcb_fill.launches += 1
     else:

@@ -81,8 +81,9 @@ class ShardedBatchAligner(BatchAligner):
         return tuple(np.concatenate([q[k].cpu().numpy() for q in queued])
                      [: len(la)] for k in range(2))
 
-    def _dispatch(self, a, b, la, lb, st, en):
-        return [(r, sh._dispatch(a[r], b[r], la[r], lb[r], st[r], en[r]))
+    def _dispatch(self, a, b, la, lb, st, en, index=0):
+        return [(r, sh._dispatch(a[r], b[r], la[r], lb[r], st[r], en[r],
+                                 index))
                 for sh, r in zip(self._shards, shard_rows(len(la),
                                                           self.num_devices))]
 
