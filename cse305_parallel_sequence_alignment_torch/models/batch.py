@@ -1,14 +1,26 @@
 """Bucketed many-pairs aligner: the throughput mode (reference P6).
 
-Pairs are length-bucketed, padded and filled together on the device, one
-CTA per pair. ``align_batch`` runs, per chunk of a bucket: the K1 fill
-emitting dirs16+runs (ops/rowcb.py), the end-table choice, the K2
-run-length walk (ops/device_walk.py), and a copy of only the used walk
-rounds to pinned host memory; the host then replays and renders with the
-native library. Two chunks are in flight: the device fills and walks
-chunk c+1 while the host replays chunk c. ``score_batch`` runs the K3
-score fill only, or the K6 long fill (ops/longrow.py) for buckets wider
-than ``long_threshold``.
+Pairs are length-bucketed, padded and filled together on the device:
+one CTA a pair up to 4,096 columns, past them a thread-block cluster of
+k CTAs a pair, the card's SMs shared out over the chunk's pairs
+(``ops/rowcb.py`` ``fill_geometry``). ``align_batch`` runs, per chunk of
+a bucket: the K1 fill emitting dirs16+runs (ops/rowcb.py), the end-table
+choice, the K2 run-length walk (ops/device_walk.py), and a copy of only
+the used walk rounds to pinned host memory; the host then replays and
+renders with the native library. Two chunks are in flight: the device
+fills and walks chunk c+1 while the host replays chunk c. ``score_batch``
+runs the K3 score fill only, or the K6 long fill (ops/longrow.py) for
+buckets wider than ``long_threshold``.
+
+A bucket is cut into equal chunks of at most ``max_batch`` pairs whose
+dirs fit a budget (``BatchAligner.chunk_size``). On the fused route a
+bucket whose rows share the SMs out (``ops/rowcb.py`` ``shares_sms``:
+more than 4,096 columns, at most ``CLUSTER_REACH``) takes as its budget
+half of the card's free memory, read once a call, and holds at most one
+wave of K1's clusters a chunk (``wave_step``), so that each launch fills
+the card once; every other bucket and route keeps a fixed 2 GiB. Buckets
+run largest first (pairs x cells): the card waits out the last chunk's
+replay and render, so the least of them goes last.
 
 With a substitution ``matrix`` (``core.SubstitutionMatrix``) sequences
 are bucketed as alphabet codes padded with the matrix's pad code, and
@@ -73,12 +85,16 @@ from cse305_parallel_sequence_alignment_torch.ops.device_walk import (
 from cse305_parallel_sequence_alignment_torch.ops.diag import skew_dirs_fill
 from cse305_parallel_sequence_alignment_torch.ops.longrow import long_fill
 from cse305_parallel_sequence_alignment_torch.ops.rowcb import (
+    card_wave,
     check_codes,
+    fill_wave,
     rowcb_fill,
     rowdirs_fill,
     rowscan_score_fill,
     score_fill,
+    shares_sms,
     submat_score_fill,
+    wave_step,
 )
 from cse305_parallel_sequence_alignment_torch.utils import observability
 from cse305_parallel_sequence_alignment_torch.utils.observability import (
@@ -217,7 +233,8 @@ def _end_choice(fin, en, h):
 PHASES = ("align_batch_ms", "prep_ms", "upload_ms", "dispatch_ms",
           "fill_walk_ms", "d2h_ms", "gap_ms", "wait_ms", "replay_ms",
           "render_ms")
-COUNTERS = ("chunks", "fill_ctas", "fill_sm_slots")
+COUNTERS = ("chunks", "fill_ctas", "fill_sm_slots", "wave_chunks")
+DIRS_BUDGET = 2 << 30  # bytes of a chunk's dirs, off the cluster path
 _ZEROS = {**dict.fromkeys(PHASES, 0.0), **dict.fromkeys(COUNTERS, 0)}
 _CALLS = itertools.count()  # the call id of the profiler ranges
 
@@ -228,7 +245,11 @@ class BatchAligner:
 
     ``bucket_quantum`` sets the padded-shape granularity. ``max_batch``
     caps pairs per launch and ``dirs_budget`` the bytes of one launch's
-    dirs array; ``align_batch`` shrinks its chunks to fit. ``backend``
+    dirs array; ``align_batch`` shrinks its chunks to fit. ``dirs_budget``
+    None (the default) is derived: half of the card's free memory for a
+    fused-route bucket on the cluster path, else ``DIRS_BUDGET`` (2 GiB,
+    and on the CPU always); a number caps every bucket
+    (``chunk_size``). ``backend``
     picks the kernels (see the module docstring: "auto"/"pallas",
     "pallas_rowscan", "wavefront", or the port's "rowdirs"). ``device`` is
     where the kernels run.
@@ -257,7 +278,9 @@ class BatchAligner:
 
     Counts: ``chunks`` dispatched; ``fill_ctas`` and ``fill_sm_slots``,
     the CTAs of each ``csrc/rowfill.cu`` launch (K1, K4d) and the card's
-    SMs once a launch (``ops/rowcb.py`` ``rowcb_fill``; 0 on the CPU).
+    SMs once a launch (``ops/rowcb.py`` ``rowcb_fill``; 0 on the CPU);
+    ``wave_chunks``, the chunks whose size the wave limit set
+    (``chunk_size``).
     While a ``torch.profiler`` records, each span is also the range
     ``seqalign.<name>`` (``align_batch``, ``prep``, ``upload``,
     ``dispatch``, ``wait``, ``replay``, ``render``), the call and chunk
@@ -270,7 +293,7 @@ class BatchAligner:
     parity_swap: bool = True
     bucket_quantum: int = 128
     max_batch: int = 512
-    dirs_budget: int = 2 << 30
+    dirs_budget: typing.Optional[int] = None
     # a substitution matrix: core.SubstitutionMatrix, or the JAX
     # package's, carried across by its alphabet and values
     matrix: object = None
@@ -384,13 +407,20 @@ class BatchAligner:
         with timer, timer.span("align_batch"):
             with timer.span("prep"):
                 enc_a, enc_b, buckets = self._prep(pairs)
+            # read once a call, and only for a bucket on the cluster path
+            free = functools.cache(self.free_bytes)
             results: list = [None] * len(pairs)
             pending: list = []
-            for key, idxs in buckets.items():
-                step = self.chunk_size(key, len(idxs))
+            # the largest bucket first: the last chunk's replay and render
+            # run after the card's last fill, so the least of them goes last
+            for key, idxs in sorted(buckets.items(), key=lambda kv: -len(
+                    kv[1]) * (kv[0][0] + 1) * (kv[0][1] + 1)):
+                with timer.span("prep"):
+                    step, by_wave = self._plan(key, len(idxs), free)
                 for s in range(0, len(idxs), step):
                     c = timer.totals["chunks"]
                     timer.add("chunks", 1)
+                    timer.add("wave_chunks", int(by_wave))
                     chunk = idxs[s: s + step]
                     with timer.span("prep", chunk=c):
                         a, b, la, lb = _bucket_arrays(enc_a, enc_b, chunk,
@@ -411,14 +441,60 @@ class BatchAligner:
                                  offsets, traceback_mode)
         return results
 
-    def chunk_size(self, key, count):
+    def chunk_size(self, key, count, free=None):
         """Pairs per ``align_batch`` chunk of a bucket of shape ``key``
         holding ``count`` pairs, by the route's dirs bytes (uint16 row
         dirs fused, uint8 row dirs for "rowdirs", uint8 skew dirs for
-        "wavefront"); two chunks at least, so the second one's fill hides
-        the first one's replay and render."""
-        return chunk_size(count, self._route.dirs_bytes(*key), self.max_batch,
-                          self.dirs_budget, split_two=True)
+        "wavefront"), in equal chunks of at most ``max_batch``; two chunks
+        at least, so the second one's fill hides the first one's replay
+        and render (``chunk_size`` of this module).
+
+        The dirs budget is ``dirs_budget``, or if that is None
+        ``DIRS_BUDGET``. A fused-route bucket on the cluster path (the
+        card's SMs shared out over its pairs, ``ops/rowcb.py``
+        ``shares_sms``) instead takes half of ``free``, the card's free
+        bytes (``free_bytes``, read here when None; none on the CPU, which
+        keeps ``DIRS_BUDGET``), capped by a ``dirs_budget`` given, and
+        its chunks hold no more pairs than one wave of K1 runs at the
+        geometry ``fill_geometry`` picks for them (``wave_step``: CUDA's
+        co-resident clusters on a card, ``fill_wave``'s floor on the
+        CPU)."""
+        return self._plan(key, count, self.free_bytes if free is None
+                          else lambda: free)[0]
+
+    def _plan(self, key, count, free):
+        """(``chunk_size``, whether the wave limit set it); ``free()``
+        gives the card's free bytes."""
+        per_pair = self._route.dirs_bytes(*key)
+        budget = DIRS_BUDGET if self.dirs_budget is None else self.dirs_budget
+        n = key[1]
+        if self._route.fill is not rowcb_fill or not shares_sms(n):
+            return chunk_size(count, per_pair, self.max_batch, budget,
+                              split_two=True), False
+        card = free()
+        if card is not None:
+            budget = card // 2 if self.dirs_budget is None else min(
+                self.dirs_budget, card // 2)
+        step = chunk_size(count, per_pair, self.max_batch, budget,
+                          split_two=True)
+        k1 = 0 if self._table is None else self._table.shape[0]
+        if self._dev.type == "cpu":
+            wave = functools.partial(fill_wave, k1=k1)
+        else:
+            wave = functools.partial(card_wave, k1=k1, device=self._dev)
+        B = wave_step(count, n, step, wave)
+        return (B, True) if B < min(step, count) else (step, False)
+
+    def free_bytes(self):
+        """The card's free bytes: ``torch.cuda.mem_get_info``'s free
+        bytes and what the caching allocator holds reserved but unused;
+        None on the CPU."""
+        if self._dev.type == "cpu":
+            return None
+        free, _ = torch.cuda.mem_get_info(self._dev)
+        stats = torch.cuda.memory_stats(self._dev)
+        return free + (stats.get("reserved_bytes.all.current", 0)
+                       - stats.get("allocated_bytes.all.current", 0))
 
     def _dispatch(self, a, b, la, lb, st, en, index=0):
         """Queue fill, end choice, walk and the device-to-host copies of

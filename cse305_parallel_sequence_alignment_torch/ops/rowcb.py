@@ -51,10 +51,13 @@ of ``round_up(n + 1, 8)`` columns (``rowcb_fill`` returns the view of
 the first n + 1, so its dirs are not contiguous; K2 reads the pitch from
 the strides), and a thread-block cluster of k <= 8 CTAs for each pair
 wider than 4,096 columns (the card's SMs shared out over the pairs).
-``fill_geometry`` picks (C, threads, k) from the bucket's shape. One
-width rule: rows of more than ``CLUSTER_REACH`` columns (8 CTAs' reach)
-run ``csrc/rowcb.cu``'s sweep with its row buffers in global scratch,
-counted in ``rowcb_fill.wide_launches``, and get contiguous dirs. Every
+``fill_geometry`` picks (C, threads, k) from the bucket's shape;
+``fill_wave`` (a floor) and ``card_wave`` (CUDA's count) give the pairs
+one launch of a geometry runs at once, and ``wave_step`` cuts a bucket's
+chunks to them (``models/batch.py``). One width rule: rows of more than
+``CLUSTER_REACH`` columns (8 CTAs' reach) run ``csrc/rowcb.cu``'s sweep
+with its row buffers in global scratch, counted in
+``rowcb_fill.wide_launches``, and get contiguous dirs. Every
 other fill here is ``csrc/rowcb.cu``'s one CUDA template with a mode
 parameter and three flags: a table, what it stores a cell, and the omega
 order.
@@ -151,23 +154,66 @@ def fill_geometry(B, n, k1=0, sms=SMS):
     ncol = n + 1
     if ncol > CLUSTER_REACH:
         return None
-    if ncol > FILL_THREADS[8] * 8:
+    if shares_sms(n):
         k = min(MAX_CLUSTER, max(-(-ncol // CTA_REACH), sms // max(B, 1)))
         return 16, 32 * -(-ncol // (32 * 16 * k)), k
-    smem = FILL_STATIC_SMEM + k1 * k1 * 4
     best = None
     for C in FILL_C:
         threads = 32 * -(-ncol // (32 * C))
         if threads > FILL_THREADS[C]:
             continue
-        warps = threads // 32
-        per_sm = max(1, min(32, 64 // warps,
-                            65536 // (threads * FILL_REGS[C]),
-                            SM_SMEM // smem))
-        waves = -(-B // (sms * per_sm))
+        waves = -(-B // (sms * _ctas_per_sm(C, threads, k1)))
         if best is None or waves < best[0]:
             best = (waves, C, threads)
     return best[1], best[2], 1
+
+
+def _ctas_per_sm(C, threads, k1):
+    """The floor of the CTAs of C columns a thread that an SM holds: its
+    register cap (``FILL_REGS``), 64 warps, 32 CTAs and shared memory."""
+    return max(1, min(32, 64 // (threads // 32),
+                      65536 // (threads * FILL_REGS[C]),
+                      SM_SMEM // (FILL_STATIC_SMEM + k1 * k1 * 4)))
+
+
+def shares_sms(n):
+    """Whether ``fill_geometry`` shares the card's SMs out over the pairs
+    of a bucket of width n: rows of more than 4,096 columns (n + 1) and
+    at most ``CLUSTER_REACH``, C = 16 and k CTAs a pair."""
+    return FILL_THREADS[8] * 8 < n + 1 <= CLUSTER_REACH
+
+
+def fill_wave(geometry, k1=0):
+    """The pairs one wave of ``csrc/rowfill.cu`` runs at ``geometry`` (C,
+    threads, k) under a (k1, k1) table or none: the clusters of k CTAs
+    that ``SMS`` SMs hold at ``fill_geometry``'s floor of CTAs an SM.
+    Pure: no card is asked (``card_wave`` asks one)."""
+    C, threads, k = geometry
+    return SMS * _ctas_per_sm(C, threads, k1) // k
+
+
+@functools.lru_cache(maxsize=None)
+def card_wave(geometry, k1, device):
+    """``fill_wave`` as CUDA counts it on ``device``: the clusters of k
+    that the card co-schedules (``cudaOccupancyMaxActiveClusters``), or
+    at k = 1 its resident CTAs an SM times its SMs. One query a geometry."""
+    C, threads, k = geometry
+    per_sm, clusters = fill_occupancy(C, threads, k, k1, device)
+    return clusters if k > 1 else per_sm * _card_sms(device)
+
+
+def wave_step(count, n, step, wave):
+    """Pairs per chunk of a bucket of ``count`` pairs of width n that the
+    other limits cut into chunks of at most ``step``: the largest equal
+    cut whose chunks fit one wave, ``wave(geometry)`` pairs at the
+    geometry ``fill_geometry`` picks for the chunk, so that no launch runs
+    a second wave. Pure where ``wave`` is."""
+    nchunks = -(-count // step)
+    while True:
+        B = -(-count // nchunks)
+        if B <= 1 or B <= wave(fill_geometry(B, n)):
+            return B
+        nchunks += 1
 
 
 def _shift(x, fill):

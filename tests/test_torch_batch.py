@@ -267,6 +267,95 @@ def test_chunk_size_policy(count, per_pair, max_batch, split_two, want):
         count, loc._dirs_bytes(bm, bn), max_batch, 10 ** 4)
 
 
+CARD_FREE = 79 << 30  # an 80 GB card's free bytes before a call
+GENES = (16384, 16384)  # dna-genes-batch's full-size bucket, 57 pairs
+FUSED_GENES = 2 * (GENES[0] + 1) * (GENES[1] + 1)
+
+
+def chunk_sizes(al, key, count, free=None):
+    step = al.chunk_size(key, count, *(() if free is None else (free,)))
+    return [min(step, count - s) for s in range(0, count, step)]
+
+
+@pytest.mark.parametrize("make,key,count,free,want,by_wave", [
+    # the cluster path: half the free bytes, then one wave a chunk
+    (dict(), GENES, 57, CARD_FREE, [29, 28], True),
+    (dict(backend="pallas_rowscan"), GENES, 57, CARD_FREE, [29, 28], True),
+    (dict(), (13312, 16384), 7, CARD_FREE, [7], False),
+    (dict(), (2048, 4096), 300, CARD_FREE, [100] * 3, True),
+    # a dirs_budget given still caps it: 4 pairs a chunk
+    (dict(dirs_budget=4 * FUSED_GENES), GENES, 57, CARD_FREE,
+     [4] * 14 + [1], False),
+    # the 2 GiB plan: the CPU, a bucket of 4,096 columns or fewer, rows
+    # past the cluster's reach, the other routes and aligners
+    (dict(), GENES, 57, None, [3] * 19, False),
+    (dict(), (2048, 4095), 300, CARD_FREE, [100] * 3, False),
+    (dict(), (128, 65536), 300, CARD_FREE, [100] * 3, False),
+    (dict(backend="rowdirs"), GENES, 57, CARD_FREE, [7] * 8 + [1], False),
+    (dict(backend="wavefront"), GENES, 57, CARD_FREE, [3] * 19, False),
+    ("local", GENES, 57, None, [3] * 19, None),
+    ("semiglobal", GENES, 57, None, [3] * 19, None),
+    ("overlap", GENES, 57, None, [3] * 19, None),
+])
+def test_cluster_chunk_plan(make, key, count, free, want, by_wave):
+    """``BatchAligner.chunk_size`` on the cluster path (rows of more than
+    4,096 columns that share the SMs out): pairs a chunk bounded by half
+    the card's free bytes and by one wave of K1 at the chunk's geometry
+    (the pure floor on the CPU); every other bucket, route and aligner
+    keeps the 2 GiB plan."""
+    from cse305_parallel_sequence_alignment_torch.models import (
+        local,
+        overlap,
+        semiglobal,
+    )
+
+    classes = {"local": local.LocalBatchAligner,
+               "semiglobal": semiglobal.SemiGlobalBatchAligner,
+               "overlap": overlap.OverlapBatchAligner}
+    if isinstance(make, str):
+        al = classes[make](device="cpu")
+    else:
+        al = BatchAligner(device="cpu", **make)
+    assert chunk_sizes(al, key, count, free) == want
+    if by_wave is not None:
+        assert al._plan(key, count, lambda: free)[1] == by_wave
+
+
+def test_genes_plan_fills_the_card():
+    """dna-genes-batch's pass (57 pairs of 16,384 x 16,384 and 7 of
+    13,312 x 16,384) on an 80 GB card: three chunks, K1's clusters on
+    71.72% of the SMs a launch (18.47% under a fixed 2 GiB)."""
+    from cse305_parallel_sequence_alignment_torch.ops.rowcb import (
+        SMS,
+        fill_geometry,
+    )
+
+    al = BatchAligner(device="cpu")
+    chunks = (chunk_sizes(al, GENES, 57, CARD_FREE)
+              + chunk_sizes(al, (13312, 16384), 7, CARD_FREE))
+    assert chunks == [29, 28, 7]
+    ctas = sum(B * fill_geometry(B, 16384)[2] for B in chunks)
+    assert ctas == 116 + 112 + 56
+    assert 100 * ctas / (len(chunks) * SMS) == pytest.approx(71.72, abs=0.01)
+
+
+@pytest.mark.parametrize("n", [4096, 6000, 8192, 12288, 16384, 32768,
+                               65535])
+def test_chunks_within_the_wave_floor(n):
+    """No cluster-path chunk holds more pairs than the pure floor of one
+    wave at its geometry, whatever the count, the budget or max_batch."""
+    from cse305_parallel_sequence_alignment_torch.ops.rowcb import (
+        fill_geometry,
+        fill_wave,
+    )
+
+    for max_batch in (512, 40):
+        al = BatchAligner(device="cpu", max_batch=max_batch)
+        for count in range(1, 400, 7):
+            for B in set(chunk_sizes(al, (128, n), count, CARD_FREE)):
+                assert B <= fill_wave(fill_geometry(B, n)), (count, B)
+
+
 @pytest.mark.cuda
 def test_align_batch_on_card_matches_cpu():
     """The CUDA path of align_batch/score_batch against the plain path."""

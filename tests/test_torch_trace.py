@@ -2,11 +2,14 @@
 counters of ``BatchAligner.align_batch``.
 
 On the CPU: every ``last_phases`` key filled on a mixed-length batch,
-``chunks`` against ``chunk_size``, a fresh recorder each call, ``count``
-outside a recorder, the ``seqalign.*`` ranges under ``torch.profiler``
-and none without it, the sharded aligner's spans, and the benchmark's
-five readers of these keys (``seqbench/metrics/``). On a card (marker
-``cuda``): the fill's CTA and SM counters against ``fill_geometry``.
+``chunks`` against ``chunk_size``, ``wave_chunks`` only for chunks the
+wave limit cut, a fresh recorder each call, ``count`` outside a
+recorder, the ``seqalign.*`` ranges under ``torch.profiler`` and none
+without it, the sharded aligner's spans, and the benchmark's five
+readers of these keys (``seqbench/metrics/``). On a card (marker
+``cuda``): the fill's CTA and SM counters against ``fill_geometry``, and
+the wave plan: no launch past CUDA's co-resident clusters, answers equal
+to the plain path's.
 """
 
 import importlib.util
@@ -76,6 +79,35 @@ def test_chunks_follow_chunk_size(count, max_batch):
     assert al.last_phases["chunks"] == expected_chunks(al, pairs)
     # one chunk has no gap before it
     assert (al.last_phases["gap_ms"] > 0) == (al.last_phases["chunks"] > 1)
+
+
+def test_wave_chunks_count_only_wave_set_chunks(monkeypatch):
+    """300 pairs of 8 x 4,096 (the cluster path at k = 1, 132 pairs a
+    wave by the CPU's floor) go in three chunks of 100 that the wave
+    limit set; 10 narrow pairs beside them in one chunk that it did not,
+    dispatched last though they come first (the largest bucket first)."""
+    rng = np.random.default_rng(9)
+
+    def seq(n):
+        return "".join(rng.choice(list("ACGT"), n))
+    wide = [(seq(8), seq(4096)) for _ in range(300)]
+    narrow = [(seq(8), seq(100)) for _ in range(10)]
+    al = BatchAligner(device="cpu", bucket_quantum=8)
+    widths = []
+    dispatch = al._dispatch
+
+    def spy(a, b, *args):
+        widths.append(b.shape[1])
+        return dispatch(a, b, *args)
+    monkeypatch.setattr(al, "_dispatch", spy)
+    out = al.align_batch(narrow + wide)
+    assert all(r is not None for r in out)
+    assert widths == [4096] * 3 + [104]
+    assert al.last_phases["chunks"] == expected_chunks(al, wide + narrow) == 4
+    assert al.last_phases["wave_chunks"] == 3
+    al.align_batch(narrow + wide[:60])  # 60 wide pairs: one chunk
+    assert al.last_phases["chunks"] == 2
+    assert al.last_phases["wave_chunks"] == 0
 
 
 def test_last_phases_start_afresh_each_call():
@@ -219,3 +251,40 @@ def test_fill_counters_on_card():
     assert ph["fill_ctas"] == ctas
     assert ph["fill_sm_slots"] == len(sizes) * sms
     assert ph["gap_ms"] > 0 and ph["fill_walk_ms"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count,la,lb", [(300, 250, 4600), (140, 100, 8300)])
+def test_wave_plan_on_card(count, la, lb, monkeypatch):
+    """A cluster-path bucket that the wave limit cuts (k = 1 at 4,608
+    columns, k = 2 at 8,320): every K1 launch holds at most the pairs
+    CUDA co-schedules at its geometry, and the answers are the plain
+    path's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(count)
+
+    def seq(n):
+        return "".join(rng.choice(list("ACGT"), n))
+    pairs = [(seq(la), seq(lb)) for _ in range(count)]
+    launches = []
+    fill = rowcb._fill
+
+    def spy(a, b, *args):
+        launches.append((a.shape[0], args[-1]))
+        return fill(a, b, *args)
+    monkeypatch.setattr(rowcb, "_fill", spy)
+    al = BatchAligner(device="cuda")
+    got = al.align_batch(pairs)
+    ph = al.last_phases
+    assert ph["wave_chunks"] == ph["chunks"] == len(launches) > 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B, (C, threads, k) in launches:
+        per_sm, clusters = rowcb.fill_occupancy(C, threads, k)
+        assert B <= (clusters if k > 1 else per_sm * sms), (B, C, threads, k)
+    want = BatchAligner(device="cpu").align_batch(pairs)
+    assert [(r.score, r.end_table, list(r.chain), r.aligned_a, r.aligned_b)
+            for r in got] == \
+        [(r.score, r.end_table, list(r.chain), r.aligned_a, r.aligned_b)
+         for r in want]
