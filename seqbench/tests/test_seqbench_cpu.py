@@ -2,7 +2,17 @@
 program's plain twins; the look for a card skipped), judged by the frozen
 reference; the same run with the timed path broken underneath, which has
 to come out not correct; and the control, the reference in bfloat16, which
-has to fail the comparison."""
+has to fail the comparison.
+
+What belongs to one cell or one entry is found by name, so a cell goes in
+by files alone: ``cells/<workload>.py`` holds its ``SMALL`` and
+``CONTROL`` sizes, ``faults/<entry>.py`` the faults planted in the timed
+path of the entry its traffic names (``FAULTS``, and ``KINDS``, the
+faults that alter an answer and those that leave answers out)."""
+
+import importlib.util
+import pathlib
+import shutil
 
 import numpy as np
 import pytest
@@ -17,19 +27,114 @@ from reference import alignment, gotoh
 BENCH = manifest.load()
 CELLS = [w["name"] for w in BENCH["workloads"]]
 GLOBAL = manifest.module("reference", "global")
-# (scale, max_items) of a pass small enough for the plain twins
-SMALL = {"dna-genes-batch": (0.005, 6)}
 SEED = 2 ** 31 + 12345
+TESTS = pathlib.Path(__file__).resolve().parent
+FOLDERS = {"cells": TESTS / "cells", "faults": TESTS / "faults"}
+NEEDED_KINDS = ("altered", "left_out")
+
+
+def by_name(folder, name):
+    """The module ``<folder>/<name>.py`` of these tests, loaded by path."""
+    path = FOLDERS[folder] / f"{name}.py"
+    if not path.is_file():
+        raise LookupError(f"add seqbench/tests/{folder}/{name}.py")
+    spec = importlib.util.spec_from_file_location(
+        f"seqbench_tests_{folder}_" + name.replace("-", "_").replace(".", "_"),
+        path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def entry_of(name, bench=BENCH):
+    return manifest.Cell(bench, name).traffic["entry"]
+
+
+def is_size(size):
+    """A (scale, max_items) pair that shrinks a pass and leaves some of it."""
+    try:
+        scale, items = size
+    except (TypeError, ValueError):
+        return False
+    return 0 < scale <= 1 and isinstance(items, int) and items > 0
+
+
+def missing_files(bench):
+    """What each cell of ``bench`` lacks of its test files, one line a
+    file, each naming the cell or entry and the file to add."""
+    out = []
+    for w in bench["workloads"]:
+        try:
+            sizes = by_name("cells", w["name"])
+        except LookupError as e:
+            out.append(f"cell {w['name']}: {e}, with SMALL and CONTROL")
+            continue
+        lacks = [k for k in ("SMALL", "CONTROL")
+                 if not is_size(getattr(sizes, k, None))]
+        if lacks:
+            out.append(f"cell {w['name']}: give seqbench/tests/cells/"
+                       f"{w['name']}.py its {' and '.join(lacks)} as "
+                       "(0 < scale <= 1, items > 0)")
+    for entry in sorted({entry_of(w["name"], bench)
+                         for w in bench["workloads"]}):
+        try:
+            faults = by_name("faults", entry)
+        except LookupError as e:
+            out.append(f"entry {entry}: {e}, with a fault that alters an "
+                       "answer and one that leaves answers out")
+            continue
+        kinds = getattr(faults, "KINDS", {})
+        lacks = [k for k in NEEDED_KINDS
+                 if not kinds.get(k) or not set(kinds[k]) <= set(faults.FAULTS)]
+        if lacks:
+            out.append(f"entry {entry}: give seqbench/tests/faults/{entry}.py "
+                       f"faults of each kind in KINDS: {', '.join(lacks)}")
+    return out
+
+
+def fault_cases():
+    """(fault, cell) for every fault of the entry each cell's traffic
+    names; a cell whose entry has no faults file is the guard's to name."""
+    cases = []
+    for name in CELLS:
+        try:
+            faults = by_name("faults", entry_of(name)).FAULTS
+        except LookupError:
+            continue
+        cases += [(fault, name) for fault in faults]
+    return cases
 
 
 def small_run(name, seed=SEED):
-    scale, items = SMALL[name]
+    scale, items = by_name("cells", name).SMALL
     return harness.run(name, seed, 0.0, False, device="cpu", scale=scale,
                        max_items=items, log=lambda line: None)
 
 
-def test_every_cell_has_a_small_size():
-    assert set(SMALL) == set(CELLS) == set(CONTROL)
+def test_every_cell_and_entry_has_its_test_files():
+    assert missing_files(manifest.load()) == []
+
+
+@pytest.mark.parametrize("folder,text,finding", [
+    ("cells", "SMALL = (0.005, 6)\n", "its CONTROL as"),
+    ("cells", "SMALL = (0.0, 6)\nCONTROL = (0.1, 4)\n", "its SMALL as"),
+    ("faults", None, "add seqbench/tests/faults/"),
+    ("faults", "FAULTS = {'x': None}\nKINDS = {'altered': ('x',)}\n",
+     "of each kind in KINDS: left_out"),
+])
+def test_guard_names_what_a_file_lacks(monkeypatch, tmp_path, folder, text,
+                                       finding):
+    """A cells or faults file that is missing, lacks a size or a kind of
+    fault, or holds a size that is no size, is the guard's one finding."""
+    name = CELLS[0] if folder == "cells" else entry_of(CELLS[0])
+    for path in FOLDERS[folder].glob("*.py"):
+        if path.stem != name:
+            shutil.copy(path, tmp_path / path.name)
+    if text is not None:
+        (tmp_path / f"{name}.py").write_text(text)
+    monkeypatch.setitem(FOLDERS, folder, tmp_path)
+    found = missing_files(manifest.load())
+    assert len(found) == 1 and name in found[0] and finding in found[0], found
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -44,86 +149,54 @@ def test_small_pass_is_correct(name):
     assert harness.forbidden_modules() == []
 
 
-def _alter_score(monkeypatch):
-    """An answer altered where it is produced: one score off by one."""
-    from cse305_parallel_sequence_alignment_torch.models import batch
-
-    orig = batch.BatchAligner._collect
-
-    def off(self, *a):
-        chains, arrays, tables, scores = orig(self, *a)
-        scores = scores.copy()
-        scores[0] += 1.0
-        return chains, arrays, tables, scores
-    monkeypatch.setattr(batch.BatchAligner, "_collect", off)
-
-
-def _drop_half(monkeypatch):
-    """Half of the batch left out: the second half of each call's answers
-    never comes."""
-    from cse305_parallel_sequence_alignment_torch.models import batch
-
-    orig = batch.BatchAligner.align_batch
-
-    def half(self, pairs, *a, **k):
-        out = orig(self, pairs, *a, **k)
-        return out[: len(out) // 2] + [None] * (len(out) - len(out) // 2)
-    monkeypatch.setattr(batch.BatchAligner, "align_batch", half)
-
-
-def _alter_column(monkeypatch):
-    """A column of an alignment altered where it is produced: the host
-    replay's first step moved to the other gap table."""
-    from cse305_parallel_sequence_alignment_torch.native import walker
-
-    orig = walker.replay_rle
-
-    def moved(*a, **k):
-        tt, ii, jj, lens = orig(*a, **k)
-        tt = tt.copy()
-        tt[:, 0] = np.where(tt[:, 0] == 2, 3, 2)
-        return tt, ii, jj, lens
-    monkeypatch.setattr(walker, "replay_rle", moved)
-
-
-def _alter_row(monkeypatch):
-    """A rendered row altered where it is produced."""
-    from cse305_parallel_sequence_alignment_torch.native import walker
-
-    def flip(rows):
-        a, b = rows
-        return ("-" if a[:1] != "-" else "A") + a[1:], b
-
-    orig = walker.render
-    monkeypatch.setattr(walker, "render", lambda *a: flip(orig(*a)))
-
-
-FAULTS = {"alter_score": _alter_score, "drop_half": _drop_half,
-          "alter_column": _alter_column, "alter_row": _alter_row}
-
-
-@pytest.mark.parametrize("name", CELLS)
-@pytest.mark.parametrize("fault", list(FAULTS))
-def test_broken_timed_path_is_not_correct(monkeypatch, name, fault):
-    FAULTS[fault](monkeypatch)
+@pytest.mark.parametrize("fault,name", fault_cases())
+def test_broken_timed_path_is_not_correct(monkeypatch, fault, name):
+    by_name("faults", entry_of(name)).FAULTS[fault](monkeypatch)
     r = small_run(name)
     assert not r["correct"]
     assert any(v["value"] > v["limit"] for v in r["compared"].values()) \
         or r["failed"] > 0
 
 
-# sizes at which bfloat16 can no longer hold the scores (over 256)
-CONTROL = {"dna-genes-batch": (0.1, 4)}
-
-
 @pytest.mark.parametrize("name", CELLS)
 def test_control_fails_the_comparison(name):
     cell = manifest.Cell(BENCH, name)
-    scale, items = CONTROL[name]
+    scale, items = by_name("cells", name).CONTROL
     p = generate.make_pass(cell.traffic, cell.config, 21, scale, items)
     n = check.judge_control(cell.entry.LIMITS, cell.config, p, "cpu",
                             "bfloat16")
     assert n["scores_wrong"] > cell.entry.LIMITS["scores_wrong"]
+
+
+def test_a_cell_goes_in_by_files_alone(monkeypatch, tmp_path):
+    """A copy of the first cell under a new name, in a manifest that adds
+    only its workload entry, runs its small pass correct and reports its
+    end-to-end metrics, ``gcups`` and ``setup_s`` among them, once its
+    cells file is there; without that file the guard's one finding is the
+    file to add."""
+    old = CELLS[0]
+    new = f"{old}-files-alone"
+    bench = dict(BENCH, workloads=BENCH["workloads"] + [
+        dict(next(w for w in BENCH["workloads"] if w["name"] == old),
+             name=new)])
+    monkeypatch.setattr(manifest, "load", lambda: bench)
+    for path in FOLDERS["cells"].glob("*.py"):
+        shutil.copy(path, tmp_path / path.name)
+    shutil.copy(FOLDERS["cells"] / f"{old}.py", tmp_path / f"{new}.py")
+    monkeypatch.setitem(FOLDERS, "cells", tmp_path)
+
+    assert missing_files(manifest.load()) == []
+    r = small_run(new)
+    assert r["correct"], r["compared"]
+    assert r["failed"] == 0 and r["window"]["checked"] > 0
+    assert set(r["metrics"]) == {m["name"] for m in
+                                 manifest.Cell(bench, new).end_to_end}
+    assert {"gcups", "setup_s"} <= set(r["metrics"])
+
+    (tmp_path / f"{new}.py").unlink()
+    assert missing_files(manifest.load()) == [
+        f"cell {new}: add seqbench/tests/cells/{new}.py, with SMALL and "
+        "CONTROL"]
 
 
 @pytest.mark.parametrize("change", [{"mode": "local"}, {"start_type": 1},
