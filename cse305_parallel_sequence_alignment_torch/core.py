@@ -179,6 +179,12 @@ class LazyChain:
     def __getitem__(self, k):
         return self._mat()[k]
 
+    def arrays(self):
+        """The chain as (tt, ii, jj) arrays, without building its tuples."""
+        if self._list is None:
+            return self._tt, self._ii, self._jj
+        return chain_arrays(self._list)
+
     def __eq__(self, other):
         if isinstance(other, LazyChain):
             other = other._mat()
@@ -192,6 +198,15 @@ class LazyChain:
 
     def __repr__(self):
         return repr(self._mat())
+
+
+def chain_arrays(chain):
+    """(tt, ii, jj) int64 arrays of a chain of ``(i, j, t)`` points: a
+    ``LazyChain``'s own arrays, or those of any sequence of points."""
+    if isinstance(chain, LazyChain):
+        return chain.arrays()
+    pts = np.asarray(list(chain), np.int64).reshape(-1, 3)
+    return pts[:, 2], pts[:, 0], pts[:, 1]
 
 
 @dataclasses.dataclass

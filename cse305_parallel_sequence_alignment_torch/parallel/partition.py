@@ -24,30 +24,43 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import time
+import itertools
 
 import numpy as np
+import torch
 
 from cse305_parallel_sequence_alignment_torch.core import (
     AlignmentResult,
+    LazyChain,
     ScoringParams,
+    chain_arrays,
     encode_seq,
-    format_alignment,
 )
 from cse305_parallel_sequence_alignment_torch.models.batch import (
     BACKENDS,
     BatchAligner,
 )
+from cse305_parallel_sequence_alignment_torch.native import walker
 from cse305_parallel_sequence_alignment_torch.ops.longrow import (
     batched_crossings,
+    crossing_combine,
     long_lastrow,
+    task_forced,
 )
 from cse305_parallel_sequence_alignment_torch.parallel.longseq import (
     longseq_lastrow,
 )
+from cse305_parallel_sequence_alignment_torch.utils.observability import (
+    PhaseTimer,
+    count,
+)
 
 FILL_BACKENDS = ("auto", "longrow", "rowscan", "sharded")
-PHASES = ("crossing_s", "segments_s", "stitch_s")
+PHASES = ("crossing_ms", "segments_ms", "stitch_ms")
+COUNTERS = ("crossing_levels", "crossing_cells", "stair_jobs", "strip_jobs",
+            "segment_cells")
+_ZEROS = {**dict.fromkeys(PHASES, 0.0), **dict.fromkeys(COUNTERS, 0)}
+_CALLS = itertools.count()  # the call id of the profiler ranges
 
 
 def _enc(s):
@@ -59,24 +72,21 @@ def crossing_on_row(a_enc, b_enc, i_mid, params, start_type, end_type,
                     device="cuda", lastrow_fn=None):
     """Best crossing cell (j, t) on row ``i_mid`` of an optimal path, from
     the forward and reverse last rows of ``lastrow_fn(a, b, params,
-    start_type) -> (3, n+1)``, by default K6 on ``device``. Returns (j, t,
-    total_score)."""
-    h = params.h
+    start_type) -> (3, n+1)``, by default K6 on ``device``, combined as
+    ``batched_crossings`` combines them. Returns (j, t, total_score)."""
     if lastrow_fn is None:
         lastrow_fn = functools.partial(long_lastrow, device=device)
+        count("strip_jobs", 2)
+    count("crossing_cells", len(a_enc) * len(b_enc))
     fwd = lastrow_fn(a_enc[:i_mid], b_enc, params, start_type)
     # the reversed problem keeps A's and B's roles, so types map to
     # themselves
     rev = lastrow_fn(a_enc[i_mid:][::-1], b_enc[::-1], params, end_type)
-    # rev row is indexed by reversed j: TR[i_mid][j] = rev[:, n - j]
-    rev_al = rev[:, ::-1]
-    stacked = np.stack([fwd[0] + rev_al[0], fwd[1] + rev_al[1] + h,
-                        fwd[2] + rev_al[2] + h])  # (3, n+1)
-    best = np.max(stacked)
-    # deterministic tie-break: smallest j, then table order T1, T2, T3
-    cand_t, cand_j = np.nonzero(stacked == best)
-    order = np.lexsort((cand_t, cand_j))
-    return int(cand_j[order[0]]), int(cand_t[order[0]]) + 1, float(best)
+    rows = torch.from_numpy(np.stack([fwd, rev]).astype(np.float32))
+    forced = task_forced([(None, None, i_mid, start_type, None)])
+    j, t, best = crossing_combine(rows, torch.tensor([len(b_enc)]), params.h,
+                                  torch.tensor(forced))
+    return int(j[0]), int(t[0]), float(best[0])
 
 
 def balanced_partition(a, b, p, params=ScoringParams(), start_type=-1,
@@ -90,11 +100,34 @@ def balanced_partition(a, b, p, params=ScoringParams(), start_type=-1,
     (start = point.t, end = -next_point.t; main_alignment.cpp:250-251).
     The bisection runs level by level: with ``crossings_fn``
     (``batched_crossings``) each level is one batched device fill,
-    otherwise ``crossing_on_row`` runs task by task with ``lastrow_fn``."""
+    otherwise ``crossing_on_row`` runs task by task with ``lastrow_fn``.
+    The points lie on an optimal path that ends in the table the free end
+    picks (``bisect``)."""
+    return bisect(a, b, p, params, start_type, end_type, crossings_fn,
+                  device, lastrow_fn)[0]
+
+
+def bisect(a, b, p, params=ScoringParams(), start_type=-1, end_type=-1,
+           crossings_fn=None, device="cuda", lastrow_fn=None):
+    """``balanced_partition``'s points and the end type the segments end
+    with.
+
+    A free end (-1) picks, of the optimal end tables, the first in the
+    order T1, T2, T3. So the first level also fills its reverse job with
+    the end forced to T1 (end type 1); where that path is optimal, its
+    crossing is taken and every later level ends its reverse fill in T1,
+    and the end type returned is 1. Otherwise the end stays free (-1):
+    the path then ends in T2 or T3."""
     a_enc, b_enc = _enc(a), _enc(b)
     m, n = a_enc.shape[0], b_enc.shape[0]
+    if crossings_fn is None:
+        def crossings_fn(tasks):
+            return [crossing_on_row(sa, sb, im, params, st, en, device,
+                                    lastrow_fn)
+                    for (sa, sb, im, st, en) in tasks]
 
     points = {0: (0, 0, start_type), p: (m, n, -end_type)}
+    end, pick_end = end_type, end_type == -1
     frontier = [(0, p)]
     while frontier:
         tasks, keys, nxt = [], [], []
@@ -109,7 +142,7 @@ def balanced_partition(a, b, p, params=ScoringParams(), start_type=-1,
             sub_a = a_enc[i_lo:i_hi]
             sub_b = b_enc[j_lo:j_hi]
             st = t_lo if k_lo > 0 else start_type
-            en = (-t_hi) if k_hi < p else end_type
+            en = (-t_hi) if k_hi < p else end
             if sub_a.shape[0] == 0:
                 # zero rows: pure gap-in-A run; any j split works
                 points[k_mid] = (i_lo, (j_lo + j_hi) // 2, 2)
@@ -121,18 +154,24 @@ def balanced_partition(a, b, p, params=ScoringParams(), start_type=-1,
                 keys.append((k_mid, i_mid, j_lo))
             nxt.append((k_lo, k_mid))
             nxt.append((k_mid, k_hi))
+        # the first level's one task again, its path ending in T1; its
+        # forward job is the same and filled once
+        pick_end = pick_end and len(tasks) == 1 and frontier == [(0, p)]
+        if pick_end:
+            tasks.append(tasks[0][:4] + (1,))
         if tasks:
-            if crossings_fn is not None:
-                results = crossings_fn(tasks)
-            else:
-                results = [
-                    crossing_on_row(sa, sb, im, params, st, en, device,
-                                    lastrow_fn)
-                    for (sa, sb, im, st, en) in tasks]
+            # the active recorder counts the levels that fill
+            count("crossing_levels")
+            results = crossings_fn(tasks)
+            if pick_end:
+                t1 = results.pop()
+                if t1[2] == results[0][2]:
+                    results[0], end = t1, 1
+                pick_end = False
             for (k_mid, i_mid, j_lo), (j_rel, t, _) in zip(keys, results):
                 points[k_mid] = (i_mid, j_lo + j_rel, t)
         frontier = nxt
-    return [points[k] for k in range(p + 1)]
+    return [points[k] for k in range(p + 1)], end
 
 
 @dataclasses.dataclass
@@ -158,9 +197,15 @@ class PartitionedAligner:
     takes its XLA row scan; both give the same crossing points, and on
     the port both sides of it run the K6 search. It is validated (an
     int >= 0) and kept.
-    ``last_phases`` holds the host-clock seconds of the latest ``align``:
-    the crossing search, the segment solves and the stitch (each ends
-    with its results on the host).
+    ``last_phases`` holds the totals of the latest ``align`` (a fresh
+    ``PhaseTimer`` a call): the host-clock milliseconds of the crossing
+    search, the segment solves and the stitch (``PHASES``, each ends with
+    its results on the host), and ``COUNTERS``: the bisection levels that
+    filled, the cells their fills cover (forward and reverse), the jobs
+    through K7 (``stair_jobs``) and through K6 (``strip_jobs``), and the
+    segments' cells. Under a ``torch.profiler`` each phase is the range
+    ``seqalign.<phase>``, ``align_batch``'s own ranges inside
+    ``seqalign.segments``.
     """
 
     params: ScoringParams = ScoringParams()
@@ -189,7 +234,7 @@ class PartitionedAligner:
                 or self.long_threshold < 0):
             raise ValueError(f"long_threshold {self.long_threshold!r}: an "
                              f"int >= 0 (grid cells)")
-        self.last_phases = dict.fromkeys(PHASES, 0.0)
+        self.last_phases = dict(_ZEROS)
 
     def _crossings_fn(self):
         if self.fill_backend in ("rowscan", "sharded"):
@@ -226,60 +271,85 @@ class PartitionedAligner:
     def partition(self, a, b):
         """The crossing points of (a, b) after the parity swap."""
         a_enc, b_enc = self._oriented(a, b)
-        return balanced_partition(
-            a_enc, b_enc, self._pick_p(len(a_enc), len(b_enc)), self.params,
-            crossings_fn=self._crossings_fn(), device=self.device,
-            lastrow_fn=self._lastrow_fn())
+        return self._bisect(a_enc, b_enc)[0]
+
+    def _bisect(self, a_enc, b_enc, end_type=-1):
+        return bisect(a_enc, b_enc, self._pick_p(len(a_enc), len(b_enc)),
+                      self.params, end_type=end_type,
+                      crossings_fn=self._crossings_fn(), device=self.device,
+                      lastrow_fn=self._lastrow_fn())
 
     def align(self, a, b) -> AlignmentResult:
-        clock = [time.perf_counter()]
-        a_enc, b_enc = self._oriented(a, b)
-        points = self.partition(a_enc, b_enc)
-        clock.append(time.perf_counter())
-        # one mixed-type batch: per-pair boundary types, offsets into the
-        # whole grid, and the forced edge runs needed to stitch
+        timer = PhaseTimer(_ZEROS, call=next(_CALLS))
+        self.last_phases = timer.totals
+        with timer:
+            a_enc, b_enc = self._oriented(a, b)
+            res, end = self._solve(a_enc, b_enc, -1, timer)
+            if end == -1 and res.end_table == 3:
+                # T1 ends no optimal path: one that ends in T2 comes first
+                alt, _ = self._solve(a_enc, b_enc, 2, timer)
+                if alt.score == res.score:
+                    res = alt
+        return res
+
+    def _solve(self, a_enc, b_enc, end_type, timer):
+        """The stitched result of one bisection with ``end_type``, and the
+        end type its segments ended with."""
+        with timer.span("crossing"):
+            points, end = self._bisect(a_enc, b_enc, end_type)
+        with timer.span("segments"):
+            results = self._segments(a_enc, b_enc, points, end, timer)
+        with timer.span("stitch"):
+            tt, ii, jj = (np.concatenate(x) for x in zip(
+                *(chain_arrays(r.chain) for r in results)))
+            chain = LazyChain(tt, ii, jj)
+            # score: evaluate the stitched alignment (exact, no refund
+            # algebra)
+            score = score_chain(a_enc, b_enc, chain, self.params)
+            row_a, row_b = walker.render(a_enc, b_enc, tt, ii, jj)
+        return AlignmentResult(score=score, chain=chain, aligned_a=row_a,
+                               aligned_b=row_b,
+                               end_table=results[-1].end_table), end
+
+    def _segments(self, a_enc, b_enc, points, end_type, timer):
+        """The segments' results: one mixed-type batch with per-pair
+        boundary types, offsets into the whole grid, and the forced edge
+        runs needed to stitch."""
         segments = []
         for k in range(len(points) - 1):
             (i0, j0, t0), (i1, j1, t1) = points[k], points[k + 1]
             st = t0 if k > 0 else -1
-            en = -t1 if k < len(points) - 2 else -1
+            en = -t1 if k < len(points) - 2 else end_type
             segments.append((i0, j0, a_enc[i0:i1], b_enc[j0:j1], st, en))
+        timer.add("segment_cells", sum(len(s[2]) * len(s[3])
+                                       for s in segments))
         aligner = BatchAligner(params=self.params, parity_swap=False,
                                bucket_quantum=self.bucket_quantum,
                                backend=self.backend, device=self.device)
-        results = aligner.align_batch(
+        return aligner.align_batch(
             [(s[2], s[3]) for s in segments],
             offsets=[(s[0], s[1]) for s in segments],
             traceback_mode="full",
             start_types=[s[4] for s in segments],
             end_types=[s[5] for s in segments])
-        clock.append(time.perf_counter())
-        full_chain = []
-        for res in results:
-            full_chain.extend(res.chain)
-        # score: evaluate the stitched alignment (exact, no refund algebra)
-        score = score_chain(a_enc, b_enc, full_chain, self.params)
-        row_a, row_b = format_alignment(bytes(a_enc), bytes(b_enc),
-                                        full_chain)
-        clock.append(time.perf_counter())
-        self.last_phases = dict(zip(PHASES, np.diff(clock).tolist()))
-        return AlignmentResult(score=score, chain=full_chain,
-                               aligned_a=row_a, aligned_b=row_b,
-                               end_table=results[-1].end_table)
 
 
 def score_chain(a_enc, b_enc, chain, params=ScoringParams()):
     """Score an explicit alignment chain under the affine model (the
-    independent evaluator of stitched alignments)."""
+    independent evaluator of stitched alignments): the column-by-column
+    sum of a loop over the chain (a match or mismatch, or -g and -h where
+    a gap opens), in its order, on arrays."""
     g, h, match, mismatch = params.astuple()
-    score = 0.0
-    prev_t = None
-    for (i, j, t) in chain:
-        if t == 1:
-            score += match if a_enc[i - 1] == b_enc[j - 1] else mismatch
-        else:
-            score -= g
-            if t != prev_t:
-                score -= h
-        prev_t = t
-    return score
+    tt, ii, jj = (np.asarray(x, np.int64) for x in chain_arrays(chain))
+    if tt.shape[0] == 0:
+        return 0.0
+    a, b = np.asarray(a_enc), np.asarray(b_enc)
+    diag = np.nonzero(tt == 1)[0]
+    terms = np.zeros((tt.shape[0], 2), np.float64)
+    terms[:, 0] = -g
+    terms[diag, 0] = np.where(a[ii[diag] - 1] == b[jj[diag] - 1], match,
+                              mismatch)
+    opens = (tt != 1) & (tt != np.concatenate([[0], tt[:-1]]))
+    terms[:, 1] = np.where(opens, -h, 0.0)
+    # add.accumulate adds in order, as the loop does
+    return float(np.add.accumulate(terms.reshape(-1))[-1])

@@ -1,19 +1,25 @@
 """The port's tracing (``utils/observability.py``) and the spans and
-counters of ``BatchAligner.align_batch``.
+counters of ``BatchAligner.align_batch`` and
+``PartitionedAligner.align``.
 
 On the CPU: every ``last_phases`` key filled on a mixed-length batch,
 ``chunks`` against ``chunk_size``, ``wave_chunks`` only for chunks the
 wave limit cut, a fresh recorder each call, ``count`` outside a
 recorder, the ``seqalign.*`` ranges under ``torch.profiler`` and none
 without it, the sharded aligner's spans, and the benchmark's five
-readers of these keys (``seqbench/metrics/``). On a card (marker
+readers of these keys (``seqbench/metrics/``); the partition's
+counters against the bisection's fills, its three ranges once an
+``align``, and the readers of its spans and of its kernels' roofline.
+On a card (marker
 ``cuda``): the fill's CTA and SM counters against ``fill_geometry``, and
 the wave plan: no launch past CUDA's co-resident clusters, answers equal
 to the plain path's.
 """
 
 import importlib.util
+import math
 import pathlib
+import sys
 import types
 
 import numpy as np
@@ -22,10 +28,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from cse305_parallel_sequence_alignment_torch.models import batch
+from cse305_parallel_sequence_alignment_torch.core import ScoringParams
 from cse305_parallel_sequence_alignment_torch.models.batch import (
     BatchAligner,
 )
-from cse305_parallel_sequence_alignment_torch.ops import rowcb
+from cse305_parallel_sequence_alignment_torch.ops import longrow, rowcb
+from cse305_parallel_sequence_alignment_torch.parallel import partition
 from cse305_parallel_sequence_alignment_torch.parallel.batch_shard import (
     ShardedBatchAligner,
 )
@@ -194,18 +202,79 @@ def test_sharded_spans_count_into_the_call():
     assert all(ph[k] > 0 for k in batch.PHASES), ph
 
 
-def reader(name):
+def metric_module(name):
     path = METRICS / f"{name}.py"
     spec = importlib.util.spec_from_file_location(
         "metric_" + name.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name):
+    return metric_module(name).read
+
+
+@pytest.mark.parametrize("p", [8, 32])
+def test_partition_counts_its_fills(p):
+    """On a 2,000 x 3,000 pair: the crossing fills cover (2 - 2/p) m n
+    cells over the bisection's levels and m n / 2 more for the first
+    level's reverse fill that ends in T1, within 0.1%; K7 (here the
+    levels of 1,000 rows) and K6 take the level's jobs, the first level's
+    forward job filled once for its two tasks."""
+    rng = np.random.default_rng(18)
+    a, b = (rng.integers(0, 4, n).astype(np.uint8) for n in (2000, 3000))
+    tasks = []
+
+    def record(level):
+        tasks.append(len(level))
+        return longrow.batched_crossings(level, ScoringParams(),
+                                         device="cpu", stair_threshold=1000)
+    with observability.PhaseTimer() as timer:
+        partition.balanced_partition(a, b, p, crossings_fn=record,
+                                     device="cpu")
+    got = timer.totals
+    assert got["crossing_cells"] == pytest.approx(
+        (2.5 - 2 / p) * 2000 * 3000, rel=1e-3)
+    assert got["crossing_levels"] == len(tasks) == math.log2(p)
+    assert tasks[0] == 2 and tasks[1:] == [2 ** k for k in
+                                           range(1, len(tasks))]
+    assert got["stair_jobs"] == 3
+    assert got["stair_jobs"] + got["strip_jobs"] == 2 * sum(tasks) - 1
+
+
+def test_partition_ranges_once_an_align():
+    """Under the profiler each ``align`` opens ``seqalign.crossing``,
+    ``seqalign.segments`` and ``seqalign.stitch`` once, in that order,
+    with ``align_batch``'s ranges inside ``seqalign.segments``; its
+    ``last_phases`` is a fresh recorder's."""
+    al = partition.PartitionedAligner(p=4, device="cpu", bucket_quantum=16)
+    (a, b), (c, d) = rand_pairs(8, 2, 60, 120)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        al.align(a, b)
+        first = al.last_phases
+        al.align(c, d)
+    ev = sorted((e for e in prof.events() if e.name.startswith("seqalign.")),
+                key=lambda e: e.time_range.start)
+    tops = [e.name for e in ev if e.name.split(".")[1] in
+            ("crossing", "segments", "stitch")]
+    assert tops == ["seqalign.crossing", "seqalign.segments",
+                    "seqalign.stitch"] * 2
+    segs = [e for e in ev if e.name == "seqalign.segments"]
+    inner = [e for e in ev if e.name == "seqalign.align_batch"]
+    assert len(inner) == 2
+    for s, e in zip(segs, inner):
+        assert s.time_range.start <= e.time_range.start
+        assert e.time_range.end <= s.time_range.end
+    assert al.last_phases is not first
+    assert list(first) == list(partition.PHASES + partition.COUNTERS)
+    assert all(first[k] > 0 for k in partition.PHASES)
 
 
 SPANS = {"prep_ms": 12.0, "upload_ms": 900.0, "wait_ms": 3.0,
          "gap_ms": 40.0, "fill_ctas": 480, "fill_sm_slots": 2640,
-         "fill_walk_ms": 1000.0}
+         "fill_walk_ms": 1000.0, "crossing_ms": 2500.0,
+         "segments_ms": 300.0, "stitch_ms": 90.0}
 READERS = [
     ("host_prep_us_per_pair.gcups", ["prep_ms"], 1e3 * 12.0 / 64),
     ("upload_us_per_pair.gcups", ["upload_ms"], 1e3 * 900.0 / 64),
@@ -213,6 +282,9 @@ READERS = [
     ("chunk_gap_us_per_pair.gcups", ["gap_ms"], 1e3 * 40.0 / 64),
     ("fill_sm_share_pct.gcups", ["fill_ctas", "fill_sm_slots"],
      100.0 * 480 / 2640),
+    ("crossing_ms_per_pair.gcups", ["crossing_ms"], 2500.0 / 64),
+    ("segments_ms_per_pair.gcups", ["segments_ms"], 300.0 / 64),
+    ("stitch_ms_per_pair.gcups", ["stitch_ms"], 90.0 / 64),
 ]
 
 
@@ -230,6 +302,38 @@ def test_benchmark_readers(name, keys, want):
     if name.startswith("fill_sm_share"):  # the CPU's plain fill counts 0
         spans = {**SPANS, "fill_ctas": 0, "fill_sm_slots": 0}
         assert read(types.SimpleNamespace(spans=spans, pairs=64)) is None
+
+
+def test_crossing_roofline_reader(monkeypatch):
+    """The crossing search's least time from the pass and the cell's p:
+    17 operations a cell over (5/2 - 2/p) m n cells, bound by operations,
+    over the traced time of ``strip_kernel`` a pass; nothing without that
+    kernel in the trace or without a cell on the command line."""
+    monkeypatch.syspath_prepend(str(METRICS.parent))
+    mod = metric_module("crossing_roofline")
+    import generate
+    import devtrace
+
+    pairs = [("A" * 13309, "C" * 80240), ("G" * 97409, "T" * 77812)]
+    cells = 13309 * 80240 + 77812 * 97409
+    least = 17 * (2.5 - 2 / 32) * cells / 67e12
+    r = types.SimpleNamespace(
+        passage=generate.Pass(calls=[[p] for p in pairs]), swap=True,
+        device=devtrace.DeviceWindow(
+            busy_s=1.0, window_s=2.0, passes=3,
+            kernels={"strip_kernel": 6 * least, "fill_kernel<16, false, "
+                     "true>": 1.0}))
+    monkeypatch.setattr(sys, "argv", ["run.py", "--workload",
+                                      "dna-genes-partition", "--seed", "1"])
+    assert mod.read(r) == pytest.approx(50.0, rel=1e-12)
+    la, lb = r.passage.oriented_lengths(True)
+    assert mod.least_seconds(la, lb, 32) == pytest.approx(least, rel=1e-12)
+    monkeypatch.setattr(sys, "argv", ["run.py"])
+    assert mod.read(r) is None
+    monkeypatch.setattr(sys, "argv", ["run.py", "--workload",
+                                      "dna-genes-partition"])
+    r.device.kernels.pop("strip_kernel")
+    assert mod.read(r) is None
 
 
 @pytest.mark.cuda
