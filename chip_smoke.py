@@ -60,9 +60,9 @@ P-micro2):
    through ``score_batch``, rows that give back the sequences; walls,
    levels, segments;
 6. K6 and K7 against their plain versions, bit for bit, at the shapes
-   step 5 gave them (each bisection level's largest K7 job, or its whole
-   K6 bucket), which set their times in the kernels line; each K7 level
-   also timed as one K6 launch over its jobs;
+   step 5 gave them (each bisection level's one K6 launch, in rows and in
+   finals mode, and its largest job through K7 at B = 1), which set
+   their times in the kernels line;
 6e. the long-pair pipeline, counters set to 0 again: ``longseq_score``
     of step 5's 97 kb pair on a mesh of the card and on a mesh of four
     entries of it (R = 256), ``longseq_lastrow`` of the 13 kb x 97 kb
@@ -770,10 +770,13 @@ def level_tasks(ea, eb, p, params):
 
 def phase_long_main(report, runs):
     """K6 and K7 against their plain versions, bit for bit, at the shapes
-    the partition path gave them: for every bisection level of both pairs,
-    the level's largest job where it went through K7, else its whole K6
-    bucket. The kernels line takes the largest K6 and K7 shapes. Each K7
-    level is also timed as one K6 launch over its jobs, rows equal."""
+    the partition path gave them: every bisection level of both pairs as
+    the one K6 launch ``batched_crossings`` makes of its jobs (unequal
+    widths, padded to the widest), in rows and in finals mode, and the
+    level's largest job through K7, the kernel at B = 1. One plain fill a
+    level gives all three: the plain finals are its rows at (la, lb), and
+    a job's own row is its row of the bucket up to its lb. The kernels
+    line takes the largest K6 bucket and K7 job."""
     import torch
 
     from cse305_parallel_sequence_alignment_torch.core import ScoringParams
@@ -788,60 +791,49 @@ def phase_long_main(report, runs):
     for run in runs:
         levels = level_tasks(run["ea"], run["eb"], run["p"], params)
         for lvl, tasks in enumerate(levels, 1):
-            jobs = longrow.level_jobs(tasks)
+            jobs = longrow.unique_jobs(tasks)[0]
             bucket = longrow._job_bucket(jobs, dev)
             la, lb = (v.cpu().numpy().astype(np.int64) for v in bucket[2:4])
-            if longrow.stair_route(jobs):
-                key = "K7"
-                one = [(torch.from_numpy(np.ascontiguousarray(x)).to(dev),
-                        torch.from_numpy(np.ascontiguousarray(y)).to(dev), t)
-                       for x, y, t in jobs]
-                k = int(np.argmax(la * lb))
-                x, y, t = one[k]
-                out_k, ms = timed(lambda: longstair.stair_lastrow_device(
-                    x, y, t, params), 3)
-                out_p, pms = timed(lambda: longstair.stair_lastrow_plain(
-                    x, y, t, params), 1, warm=False)
-                cells = float(la[k] * lb[k])
-                ins = nbytes(x, y)
-                shape = f"job {la[k]} x {lb[k]} of {len(jobs)}"
-                # the level's serial K7 launches against one K6 launch
-                rows7, ms7 = timed(lambda: [longstair.stair_lastrow_device(
-                    x, y, t, params) for x, y, t in one], 3)
-                rows6, ms6 = timed(lambda: longrow.long_fill(
-                    *bucket, params, True), 3)
-                same = max(max_err(r, rows6[j, :, : r.shape[1]])
-                           for j, r in enumerate(rows7))
-                print(f"[long-main] level {lvl} as {len(jobs)} serial K7 "
-                      f"{ms7:.3f} ms, as one K6 launch {ms6:.3f} ms; "
-                      f"rows err {same}", flush=True)
-                if same:
-                    raise RuntimeError("K6 and K7 rows differ")
-            else:
-                key = "K6"
-                out_k, ms = timed(lambda: longrow.long_fill(
-                    *bucket, params, True), 3)
-                out_p, pms = timed(lambda: longrow.long_fill_plain(
-                    *bucket, params, True), 1, warm=False)
-                cells = float((la * lb).sum())
-                ins = nbytes(*bucket)
-                shape = (f"bucket {len(jobs)} x {la.min()}-{la.max()} x "
-                         f"{lb.min()}-{lb.max()}")
-            err = max_err(out_k, out_p)
-            print(f"[long-main] {run['name']} level {lvl} {key} {shape}: "
-                  f"err {err} {ms:.3f} ms (plain {pms:.1f} ms), "
-                  f"{cells / ms / 1e6:.1f} GCUPS", flush=True)
-            if err:
-                raise RuntimeError(f"{key} disagrees with its plain version "
-                                   f"at {run['name']} level {lvl}")
-            rep = report[key]
-            rep["max_abs_err"] = max(rep["max_abs_err"], err)
-            if cells > largest[key]:
-                largest[key] = cells
-                rep["ms"], rep["plain_ms"] = ms, pms
-                rep["bound_ms"], rep["bound_by"] = bound(
-                    SWEEP_OPS * cells, ins + nbytes(out_k))
-            del out_k, out_p
+            B = len(jobs)
+            rows_p, pms = timed(lambda: longrow.long_fill_plain(
+                *bucket, params, True), 1, warm=False)
+            rows_k, ms = timed(lambda: longrow.long_fill(
+                *bucket, params, True), 3)
+            fins_k, ms_f = timed(lambda: longrow.long_fill(
+                *bucket, params), 3)
+            fins_p = rows_p[torch.arange(B, device=dev), :, bucket[3].long()]
+            k = int(np.argmax(la * lb))
+            x, y = (torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                    for v in jobs[k][:2])
+            t = jobs[k][2]
+            row7, ms7 = timed(lambda: longstair.stair_lastrow_device(
+                x, y, t, params), 3)
+            errs = {"rows": max_err(rows_k, rows_p),
+                    "finals": max_err(fins_k, fins_p),
+                    "K7": max_err(row7, rows_p[k, :, : int(lb[k]) + 1])}
+            cells = float((la * lb).sum())
+            print(f"[long-main] {run['name']} level {lvl}: K6 bucket {B} x "
+                  f"{la.min()}-{la.max()} x {lb.min()}-{lb.max()} rows "
+                  f"{ms:.3f} ms, finals {ms_f:.3f} ms (plain {pms:.1f} ms), "
+                  f"{cells / ms / 1e6:.1f} GCUPS; K7 job {la[k]} x {lb[k]} "
+                  f"{ms7:.3f} ms, {la[k] * lb[k] / ms7 / 1e6:.1f} GCUPS; "
+                  f"errs {errs}", flush=True)
+            if any(errs.values()):
+                raise RuntimeError(f"K6/K7 disagree with their plain version "
+                                   f"at {run['name']} level {lvl}: {errs}")
+            for key, err, c, t_ms, ins, out in (
+                    ("K6", max(errs["rows"], errs["finals"]), cells, ms,
+                     nbytes(*bucket), rows_k),
+                    ("K7", errs["K7"], float(la[k] * lb[k]), ms7,
+                     nbytes(x, y), row7)):
+                rep = report[key]
+                rep["max_abs_err"] = max(rep["max_abs_err"], err)
+                if c > largest[key]:
+                    largest[key] = c
+                    rep["ms"], rep["plain_ms"] = t_ms, pms
+                    rep["bound_ms"], rep["bound_by"] = bound(
+                        SWEEP_OPS * c, ins + nbytes(out))
+            del rows_k, rows_p, fins_k, row7
         torch.cuda.empty_cache()
     if not all(largest.values()):
         raise RuntimeError(f"a long kernel had no partition shape: {largest}")
@@ -3142,8 +3134,8 @@ def main():
                   for k in _build.KERNELS}
         builds["tsalib"] = pool.submit(build, _build.host_library)
         ptxas = {k: pool.submit(_build.resource_usage, k)
-                 for k in ("rowfill", "halostair", "banded", "rowprobe",
-                           "micro")}
+                 for k in ("rowfill", "halostair", "banded", "longrow",
+                           "rowprobe", "micro")}
         done = {k: b.result() for k, b in builds.items()}
         print(f"[build] kernels {_build.KERNELS} and host library built and "
               f"loaded in {time.perf_counter() - t0:.1f} s (each done at: "
@@ -3160,14 +3152,18 @@ def main():
         if len(ROWFILL_USAGE) != 8 or spilled:
             raise RuntimeError(f"csrc/rowfill.cu: 8 instances without a "
                                f"spill expected, got {ROWFILL_USAGE}")
-        # the register-row bodies of K8 and K12d, three instances each
-        for src_name, kern in (("halostair", "rows_kernel"),
-                               ("banded", "band_rows_kernel")):
+        # the register-row bodies of K8 and K12d (three instances each)
+        # and of K6/K7 (five)
+        for src_name, kern, count in (("halostair", "rows_kernel", 3),
+                                      ("banded", "band_rows_kernel", 3),
+                                      ("longrow", "strip_kernel", 5)):
             usage = {k: v for k, v in ptxas[src_name].result().items()
                      if k.startswith(kern + "<")}
-            if len(usage) != 3 or any(v[2] or v[3] for v in usage.values()):
-                raise RuntimeError(f"csrc/{src_name}.cu: 3 {kern} instances "
-                                   f"without a spill expected, got {usage}")
+            if (len(usage) != count
+                    or any(v[2] or v[3] for v in usage.values())):
+                raise RuntimeError(f"csrc/{src_name}.cu: {count} {kern} "
+                                   f"instances without a spill expected, "
+                                   f"got {usage}")
 
     src = f"{PKG}/csrc"
     report = {

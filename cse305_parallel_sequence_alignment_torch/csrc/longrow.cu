@@ -1,4 +1,4 @@
-// Column-strip staircase long fill for the H100 (sm_90a), plain C interface.
+// Skewed wavefront long fill for the H100 (sm_90a), plain C interface.
 //
 // K6 (wrapper ops/longrow.py long_fill) replaces the TPU kernel
 // _longrow_kernel (cse305_parallel_sequence_alignment_tpu/ops/
@@ -8,41 +8,63 @@
 // (3, n+1). K7 (wrapper ops/longstair.py stair_lastrow_device) replaces
 // _stair_kernel (ops/pallas_longstair.py:81, launched by _pallas_stair
 // :278), one job's last row at full utilisation: the same kernel launched
-// for one job, whose strips alone cover the card.
+// for a batch of one. The crossing search launches it once a bisection
+// level, the level's jobs as its batch.
 //
-// Design. Each job is cut into column strips of W = threads * C columns,
-// and one CTA sweeps all rows 1..la of one strip with the in-CTA row scan
-// of csrc/rowcb.cu: each thread owns C columns; T2's prefix max is a pass
-// over the thread's columns, a warp-shuffle scan and the warp totals in
-// shared memory. At every row the strip's left edge needs three values at
-// the last column of strip s-1, which that strip writes to global memory
-// as a record per row
-//     [max3(T1,T2,T3) of row i, max(T1,T3) of row i,
-//      prefix max of omega up to the column]
-// and publishes with a row counter (release store, every kPublish rows);
-// thread 0 of strip s waits on it with acquire loads. The max3 of row i
-// goes into a halo column (index -1 of the row buffers), where it feeds
-// T1's diagonal on row i+1; max(T1,T3) feeds omega of the strip's first
-// column, and the prefix max seeds thread 0's running max, so the block
-// scan carries it to the whole strip. All three are max and add of the
-// very values the whole-row sweep uses, so every cell is bit-equal to the
-// plain version (ops/rowcb.py _sweep_plain) and to the TPU kernels, which
-// exchange the same records between column chunks.
-//
-// Deadlock. A CTA that waits needs its producer resident. Each CTA takes
-// its (job, strip) from an atomic ticket in the order CTAs start, strip
-// before strip within a job, so the strip it waits on started earlier
-// and is running or done.
+// Design (strip_kernel<C>, redesigned for the H100 after csrc/rowfill.cu
+// and csrc/halostair.cu rows_kernel):
+// 1. Rows in registers. Each lane owns C contiguous columns (C = 4, 8,
+//    16, 24 or 32) of one job for the whole sweep, and keeps their
+//    max(T1, T2) and T3 of the previous row, g*j and B's codes (four to a
+//    register) in registers. Nothing of a row goes through shared memory;
+//    A's codes do, staged a block of rows ahead.
+// 2. A skewed wavefront. A lane is a strip of C columns, and lane L of a
+//    warp works on row t - L + 1 at its step t: it needs of its left
+//    neighbour only the record of the same row at the column left of its
+//    own,
+//        x = max3(T1, T2, T3), and E = prefix max of omega up to and
+//        including its own first column,
+//    which that lane computed at step t - 1 and hands on by one
+//    __shfl_up_sync of two floats. So a warp holds 32 rows in flight, no
+//    lane waits on a barrier or a scan inside a row, and the only chain
+//    from one step to the next is the record: E's two maxes and x's three.
+//    Everything else of a row (T1, T3, omega and the running max over the
+//    lane's own columns) depends on the previous row alone and runs while
+//    the shuffle is in flight. The step has no branch but a lane's own
+//    start and end: column 0 of the job and lane 0's record are selects,
+//    since a divergent lane makes its warp run both paths, and the warp
+//    of a job's column 0 paces the whole wavefront.
+// 3. Warps and CTAs. Lane 31's records go to the next warp of the CTA
+//    through a ring in shared memory, and the CTA's last warp hands them to
+//    the next CTA (the next strip of W = warps x 32 x C columns) through
+//    global memory, as K8 does: one 16-byte line a row of two 8-byte
+//    (value, flag) words, the flag the row's number, single-copy atomic, so
+//    no fence and no counter. Warp 0 of strip s loads the lines of a block
+//    of kStep rows one block ahead and reads them again until the flags
+//    show the rows. The CTA steps in supersteps of kStep steps with one
+//    barrier each; warp w runs kLag supersteps behind warp w - 1, so that
+//    a record is written a superstep before it is read.
+// 4. Batches. One launch holds B jobs padded to the widest (m, n), a grid
+//    of B x S CTAs taken from an atomic ticket in start order, strip-major,
+//    so every job's strip s starts before any strip s + 1 and no CTA waits
+//    on one that is not resident. Each job stops at its own la, and strips
+//    and warps wholly past its own lb do no work; with want_row their
+//    columns read -inf, as every column past lb does.
+// 5. Geometry (C, warps, S) comes from ops/longrow.py strip_plan, a pure
+//    function of (B, m, n, want_row, SMs) fitted to this card's measured
+//    times. A wavefront runs at the pace of its slowest strip, so the
+//    plan keeps the busiest scheduler to one warp where it can: a step
+//    took ~0.30 us at C = 16 with one warp a scheduler and ~0.50 us where
+//    some SMs held a second. Hence the wide instances: three 97 kb jobs
+//    at C = 24 fill the card's 528 schedulers once.
 //
 // Bounds. Per cell ~17 float operations and no device-memory traffic but
-// the two sequences, 16 bytes of record per row and strip, and the output
-// (12 bytes a cell of the last row, or 12 bytes a job): a 48 k x 97 k job
-// is ~80 G operations, ~1.2 ms at the fp32 peak, and ~0.3 GB of records.
-// What binds is the serial chain of a row inside a CTA (two passes over a
-// thread's columns) and its two block barriers. The wrapper picks the
-// strip width so that about two CTAs per SM are in flight, whose rows
-// overlap; the staircase costs a start-up of one publication interval per
-// strip.
+// the two sequences, 16 bytes of record a row and strip, and the output
+// (12 bytes a cell of the last row, or 12 bytes a job). What binds is a
+// step's latency while a level's lanes leave the schedulers one warp or
+// fewer (~0.17 us at C = 4 to ~0.44 us at C = 32 for a lone warp: a long
+// dependent chain for its instruction count), the SMs' issue rate past
+// that, and the wavefront's start-up, ~1.8 steps a lane of the row.
 //
 // Numerics. float32 with true -inf, built with -fmad=false, the operation
 // order that XLA runs for the JAX kernels, gh = g + h rounded to float32
@@ -50,6 +72,9 @@
 //   T1 = fb + max3(prev row, j-1)
 //   T3 = max(max(T1,T2)(prev, j) - gh, T3(prev, j) - g)
 //   omega = (g*j + max(T1,T3)(j-1)) - gh,  T2 = prefixmax(omega) - g*j
+// The prefix max is carried from lane to lane instead of scanned; max is
+// exact, so every cell is bit-equal to the plain version (ops/rowcb.py
+// _sweep_plain) and to the TPU kernels.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -57,29 +82,35 @@
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr int kPublish = 4;  // rows between two releases of a strip's counter
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kStep = 16;              // steps a superstep
+constexpr int kLag = 2 + 30 / kStep;   // supersteps warp w trails warp w - 1
+constexpr int kRing = 4 * kStep;       // records a warp's ring holds
+constexpr int kMaxWarps = 8;           // warps a CTA (strip_plan's cap)
+constexpr int kCodes = 1024;           // A's codes the CTA's ring holds
 
-__device__ __forceinline__ float warp_incl_max(float v) {
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int s = 1; s < 32; s <<= 1) {
-        float o = __shfl_up_sync(0xffffffffu, v, s);
-        if (lane >= s) v = fmaxf(v, o);
-    }
-    return v;
+// CTAs an SM each instance is built for (the register cap is 65,536 /
+// (256 x this), at most 255)
+__host__ __device__ constexpr int min_blocks(int C) {
+    return C == 4 ? 3 : (C == 8 ? 2 : 1);
 }
 
-__device__ __forceinline__ int ld_acquire(const int* p) {
-    int v;
-    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
-                 : "=r"(v) : "l"(p) : "memory");
-    return v;
+// One line of the strip-to-strip link: two 8-byte (value, flag) words.
+__device__ __forceinline__ void st_link(uint4* p, float x, float z,
+                                        unsigned flag) {
+    asm volatile("st.volatile.global.v4.u32 [%0], {%1, %2, %3, %4};"
+                 :: "l"(p), "r"(__float_as_uint(x)), "r"(flag),
+                    "r"(__float_as_uint(z)), "r"(flag)
+                 : "memory");
 }
 
-__device__ __forceinline__ void st_release(int* p, int v) {
-    asm volatile("st.release.gpu.global.s32 [%0], %1;"
-                 :: "l"(p), "r"(v) : "memory");
+__device__ __forceinline__ uint4 ld_line(const uint4* p) {
+    uint4 v;
+    asm volatile("ld.volatile.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                 : "l"(p)
+                 : "memory");
+    return v;
 }
 
 // Row 0 at global column gj (reference boundary; quirk: +2 acts as -1).
@@ -98,212 +129,286 @@ __device__ __forceinline__ void row0(int gj, int sta, float g, float h,
     }
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+// The captured row's columns [c0, c0 + C): -inf past lb, nothing past n.
+template <int C>
+__device__ __forceinline__ void put_row(float* orow, int ncol, int c0,
+                                        int lB, const float* t1,
+                                        const float* t2, const float* t3) {
+    const float NEG = -CUDART_INF_F;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+        const int j = c0 + c;
+        if (j < ncol) {
+            const bool in = j <= lB;
+            orow[j] = in ? t1[c] : NEG;
+            orow[ncol + j] = in ? t2[c] : NEG;
+            orow[2 * ncol + j] = in ? t3[c] : NEG;
+        }
+    }
+}
+
+template <int C>
+__global__ void __launch_bounds__(32 * kMaxWarps, min_blocks(C))
 strip_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
              const int32_t* __restrict__ la, const int32_t* __restrict__ lb,
              const int32_t* __restrict__ st, float* __restrict__ out,
-             float4* rec, int* cnt, int* ticket, int m, int n, int C,
-             int nstrips, int want_row, float g, float h, float match,
-             float mismatch) {
-    extern __shared__ __align__(16) char smem[];
+             uint4* link, int* ticket, int B, int m, int n, int nstrips,
+             int want_row, float g, float h, float match, float mismatch) {
+    static_assert(C % 4 == 0 && C >= 4 && C <= 32, "C is 4 to 32, by 4");
+    // ring[w] holds the records warp w reads: ring[0] the strip's inbound,
+    // ring[w + 1] what warp w's lane 31 writes
+    __shared__ float2 ring[kMaxWarps + 1][kRing];
+    // A's code of row r at [r % kCodes], two supersteps ahead of warp 0
+    __shared__ uint8_t acodes[kCodes];
     __shared__ int s_cta;
-    const int tid = threadIdx.x;
-    const int lane = tid & 31, warp = tid >> 5;
     const float NEG = -CUDART_INF_F;
     const float gh = g + h;  // float32, as XLA folds x - g - h
+    const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5, NW = blockDim.x >> 5;
     if (tid == 0) s_cta = atomicAdd(ticket, 1);
     __syncthreads();
-    const int job = s_cta / nstrips, s = s_cta % nstrips;
-    const int W = blockDim.x * C;  // strip width
+    const int s = s_cta / B, job = s_cta % B;  // strip-major tickets
+    const int W = NW * 32 * C;
     const int ncol = n + 1;
-    const int g0 = s * W;          // global column of local column 0
-    const int wcols = min(W, ncol - g0);
-
-    // shared: warp totals (32 f32) | b_ext (W u8, 16-aligned) | row
-    // buffers [2 parities][T1, T2, T3][W + 1], local column -1 = halo
-    float* wsum = reinterpret_cast<float*>(smem);
-    uint8_t* bext = reinterpret_cast<uint8_t*>(smem + 128);
-    float* rows = reinterpret_cast<float*>(smem + 128 + ((W + 15) & ~15));
-    const int stride = W + 1;
-#define TBUF(buf, k) (rows + ((buf) * 3 + (k)) * stride + 1)
-
+    const int g0 = s * W;  // global column of the strip's first
     const int sta = st[job], lA = la[job], lB = lb[job];
-    const uint8_t* arow = a + (size_t)job * m;
-    const uint8_t* brow = b + (size_t)job * n;
-    for (int j = tid; j < wcols; j += blockDim.x) {
-        const int gj = g0 + j;
-        bext[j] = gj == 0 ? (uint8_t)255 : brow[gj - 1];
-    }
-    const int c0 = tid * C;
-    const int c1 = min(c0 + C, wcols);
+    const int c0 = g0 + (warp * 32 + lane) * C;  // this lane's first column
     float* fin = out + (size_t)job * 3;          // finals mode: (B, 3)
     float* orow = out + (size_t)job * 3 * ncol;  // row mode: (B, 3, ncol)
-    const size_t strip_id = (size_t)job * nstrips + s;
-    // the strip's last column produces records, unless it is the last strip
-    const bool producer = s + 1 < nstrips && c0 < c1 && c1 == W;
+    const bool live = g0 + warp * 32 * C <= lB;  // the warp has work
+    if (!live && want_row) {
+        float neg[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) neg[c] = NEG;
+        put_row<C>(orow, ncol, c0, lB, neg, neg, neg);
+    }
+    if (g0 > lB) return;  // the whole strip lies past the job's width
+    const int nlive = min(NW, (lB - g0) / (32 * C) + 1);
 
-    // row 0, and the halo: row 0 at column g0-1
-    for (int j = c0; j < c1; ++j) {
+    // the lane's columns: B's codes (column 0 and past n: 255), g*j, and
+    // row 0 as max(T1, T2) and T3
+    const uint8_t* arow = a + (size_t)job * m;
+    const uint8_t* brow = b + (size_t)job * n;
+    uint32_t bc[C / 4];
+    float M12[C], T3[C], gj[C + 1];
+#pragma unroll
+    for (int q = 0; q < C / 4; ++q) bc[q] = 0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+        const int j = c0 + c;
+        const uint32_t code = (j > 0 && j <= n) ? brow[j - 1] : 255u;
+        bc[c >> 2] |= code << ((c & 3) * 8);
+        gj[c] = g * (float)j;
         float r1, r2, r3;
-        row0(g0 + j, sta, g, h, r1, r2, r3);
-        TBUF(0, 0)[j] = r1;
-        TBUF(0, 1)[j] = r2;
-        TBUF(0, 2)[j] = r3;
-        if (lA == 0) {
+        row0(j, sta, g, h, r1, r2, r3);
+        M12[c] = fmaxf(r1, r2);
+        T3[c] = r3;
+        if (lA == 0 && live) {
             if (want_row) {
-                orow[g0 + j] = r1;
-                orow[ncol + g0 + j] = r2;
-                orow[2 * ncol + g0 + j] = r3;
-            } else if (g0 + j == lB) {
+                if (j < ncol) {
+                    orow[j] = j <= lB ? r1 : NEG;
+                    orow[ncol + j] = j <= lB ? r2 : NEG;
+                    orow[2 * ncol + j] = j <= lB ? r3 : NEG;
+                }
+            } else if (j == lB) {
                 fin[0] = r1;
                 fin[1] = r2;
                 fin[2] = r3;
             }
         }
     }
-    if (tid == 0) {
-        float r1 = NEG, r2 = NEG, r3 = NEG;
-        if (s > 0) row0(g0 - 1, sta, g, h, r1, r2, r3);
-        TBUF(0, 0)[-1] = r1;
-        TBUF(0, 1)[-1] = r2;
-        TBUF(0, 2)[-1] = r3;
+    gj[C] = g * (float)(c0 + C);
+    const bool first = c0 == 0;  // the lane of the job's column 0
+    const bool sta3 = sta == -3, sta12 = sta == 1 || sta == 2;
+    const float nh = -h;
+    // max3 of the previous row at column c0 - 1, T1's diagonal
+    float dprev = NEG;
+    if (c0 > 0) {
+        float r1, r2, r3;
+        row0(c0 - 1, sta, g, h, r1, r2, r3);
+        dprev = fmaxf(fmaxf(r1, r2), r3);
     }
+
+    // strip 0 has nothing on its left: prefix max -inf at column 0
+    if (s == 0)
+        for (int k = tid; k < kRing; k += blockDim.x)
+            ring[0][k] = make_float2(NEG, NEG);
+    const uint4* lin = link + ((size_t)(s > 0 ? s - 1 : 0) * B + job) * (m + 1);
+    uint4* lout = link + ((size_t)s * B + job) * (m + 1);
+    // the next strip reads this one's records only if it has work
+    const bool feed = s + 1 < nstrips && (s + 1) * W <= lB;
+    // warp 0 of strip s > 0: the link lines of the next block of rows
+    uint4 pre = make_uint4(0u, 0u, 0u, 0u);
+    if (warp == 0 && s > 0 && lane < kStep && lane + 1 <= lA)
+        pre = ld_line(lin + lane + 1);
+    // rows 1 .. 2 kStep of A now, and the next kStep in a register
+    for (int r = tid + 1; r <= 2 * kStep; r += blockDim.x)
+        acodes[r & (kCodes - 1)] = r <= lA ? arow[r - 1] : 0;
+    uint32_t apre = 0;
+    if (tid < kStep && 2 * kStep + tid < lA) apre = arow[2 * kStep + tid];
+    int acn = lA > 0 ? (int)arow[0] : 0;  // A's code of the lane's next row
+    float ox = NEG, oE = NEG;  // the lane's record of its latest row
     __syncthreads();
 
-    int avail = 0;  // rows of strip s-1 seen published (thread 0)
-    for (int i = 1; i <= lA; ++i) {
-        const int cur = i & 1, prv = cur ^ 1;
-        const float* P1 = TBUF(prv, 0);
-        const float* P2 = TBUF(prv, 1);
-        const float* P3 = TBUF(prv, 2);
-        float* Q1 = TBUF(cur, 0);
-        float* Q2 = TBUF(cur, 1);
-        float* Q3 = TBUF(cur, 2);
-        const int ac = arow[i - 1];
-        const float fi = (float)i;
-        // column 0 of T3 (quirk: +3 acts as -1 on column 0)
-        const float col0_3 = (sta == -3) ? -g * fi
-                           : ((sta == 1 || sta == 2) ? NEG : -h - g * fi);
-
-        // pass 1: T1, T3 and the chunk-local prefix max of omega
-        float run_max = NEG;
-        float lm3 = NEG;   // max3 of the previous row at j-1
-        float m13l = NEG;  // max(T1, T3) of this row at j-1
-        if (tid == 0 && s > 0) {
-            // left edge: strip s-1's record of row i
-            const int* flag = cnt + strip_id - 1;
-            if (avail < i) {
-                while ((avail = ld_acquire(flag)) < i) __nanosleep(64);
-            }
-            const float4 r = __ldcg(rec + (strip_id - 1) * m + (i - 1));
-            lm3 = fmaxf(fmaxf(P1[-1], P2[-1]), P3[-1]);
-            m13l = r.y;
-            run_max = r.z;
-            Q1[-1] = r.x;  // halo of row i, read on row i+1
-            Q2[-1] = NEG;
-            Q3[-1] = NEG;
-        } else if (c0 > 0 && c0 < c1) {
-            // left neighbour column, recomputed from the previous row
-            const int jl = c0 - 1;
-            const float q12 = fmaxf(P1[jl], P2[jl]);
-            const float q3v = P3[jl];
-            float t1l = NEG, t3l = col0_3;
-            if (g0 + jl > 0) {
-                const float mp3ll = fmaxf(fmaxf(P1[jl - 1], P2[jl - 1]),
-                                          P3[jl - 1]);
-                const float fbl = bext[jl] == ac ? match : mismatch;
-                t1l = fbl + mp3ll;
-                t3l = fmaxf(q12 - gh, q3v - g);
-            }
-            lm3 = fmaxf(q12, q3v);
-            m13l = fmaxf(t1l, t3l);
+    const int steps = lA + 31;  // a warp's steps: row 1 at lane 0 to la at 31
+    const int nsup = lA > 0 ? (steps + kStep - 1) / kStep + (nlive - 1) * kLag
+                            : 0;
+    for (int k = 0; k < nsup; ++k) {
+        // A's rows (k + 2) kStep + 1 .. + kStep, read from superstep k + 1 on
+        if (tid < kStep) {
+            const int r = (k + 2) * kStep + tid + 1;
+            acodes[r & (kCodes - 1)] = (uint8_t)apre;
+            if (r + kStep <= lA) apre = arow[r + kStep - 1];
         }
-        for (int j = c0; j < c1; ++j) {
-            const int gj = g0 + j;
-            const float p1 = P1[j], p2 = P2[j], p3 = P3[j];
-            const float mp12 = fmaxf(p1, p2);
-            const float mp3 = fmaxf(mp12, p3);
-            float t1 = NEG, t3 = col0_3, omega = NEG;
-            if (gj > 0) {
-                const float fb = bext[j] == ac ? match : mismatch;
-                t1 = fb + lm3;
-                t3 = fmaxf(mp12 - gh, p3 - g);
-                omega = (g * (float)gj + m13l) - gh;
-            }
-            run_max = fmaxf(run_max, omega);
-            Q1[j] = t1;
-            Q3[j] = t3;
-            Q2[j] = run_max;  // chunk-local prefix; fixed in pass 2
-            lm3 = mp3;
-            m13l = fmaxf(t1, t3);
-        }
-
-        // block scan: exclusive prefix max of the chunk maxima
-        const float incl = warp_incl_max(run_max);
-        if (lane == 31) wsum[warp] = incl;
-        __syncthreads();
-        float wpre = (lane < warp) ? wsum[lane] : NEG;
-#pragma unroll
-        for (int k = 16; k > 0; k >>= 1)
-            wpre = fmaxf(wpre, __shfl_xor_sync(0xffffffffu, wpre, k));
-        float inwarp = __shfl_up_sync(0xffffffffu, incl, 1);
-        if (lane == 0) inwarp = NEG;
-        const float excl = fmaxf(wpre, inwarp);
-
-        // pass 2: T2, the capture of row la, the record of the last column
-        for (int j = c0; j < c1; ++j) {
-            const int gj = g0 + j;
-            const float pm = fmaxf(Q2[j], excl);
-            const float t2 = gj == 0 ? NEG : pm - g * (float)gj;
-            Q2[j] = t2;
-            if (i == lA) {
-                if (want_row) {
-                    orow[gj] = Q1[j];
-                    orow[ncol + gj] = t2;
-                    orow[2 * ncol + gj] = Q3[j];
-                } else if (gj == lB) {
-                    fin[0] = Q1[j];
-                    fin[1] = t2;
-                    fin[2] = Q3[j];
+        if (warp == 0 && s > 0) {
+            // the inbound rows k * kStep + 1 .. + kStep, then the next block
+            const int r = k * kStep + lane + 1;
+            bool ok = lane >= kStep || r > lA ||
+                      (pre.y == (unsigned)r && pre.w == (unsigned)r);
+            while (!__all_sync(kFull, ok)) {
+                if (!ok) {
+                    pre = ld_line(lin + r);
+                    ok = pre.y == (unsigned)r && pre.w == (unsigned)r;
                 }
             }
-            if (producer && j == W - 1) {
-                const float t1 = Q1[j], t3 = Q3[j];
-                __stcg(rec + strip_id * m + (i - 1),
-                       make_float4(fmaxf(fmaxf(t1, t2), t3), fmaxf(t1, t3),
-                                   pm, 0.0f));
-                if (i % kPublish == 0 || i == lA) st_release(cnt + strip_id, i);
+            if (lane < kStep && r <= lA)
+                ring[0][r & (kRing - 1)] =
+                    make_float2(__uint_as_float(pre.x), __uint_as_float(pre.z));
+            if (lane < kStep && r + kStep <= lA) pre = ld_line(lin + r + kStep);
+            __syncwarp();
+        }
+        const int t0 = (k - warp * kLag) * kStep;
+        if (live && t0 >= 0 && t0 < steps) {
+            const float2* rin = ring[warp];
+            float2* rout = ring[warp + 1];
+#pragma unroll 2
+            for (int u = 0; u < kStep; ++u) {
+                const int t = t0 + u;
+                const int i = t - lane + 1;  // this lane's row
+                // the left neighbour's record of row i: lane 0's from the
+                // ring (every lane reads the one slot, a broadcast), the
+                // others' by shuffle, with no branch
+                const float2 v = rin[(t + 1) & (kRing - 1)];
+                float rx = __shfl_up_sync(kFull, ox, 1);
+                float rE = __shfl_up_sync(kFull, oE, 1);
+                rx = lane == 0 ? v.x : rx;
+                rE = lane == 0 ? v.y : rE;
+                if (i < 1 || i > lA) continue;
+                const int ac = acn;
+                acn = acodes[(i + 1) & (kCodes - 1)];  // the next row's code
+                float lm3 = dprev;  // max3(i-1, c0-1)
+                dprev = rx;         // max3(i, c0-1), for row i+1
+                // column 0's T3 (quirk: +3 acts as -1 on column 0), taken
+                // by the job's first lane through selects: a branch there
+                // would run pass 1 twice in the warp that paces the job
+                const float gf = g * (float)i;
+                const float col0 = sta3 ? -gf : (sta12 ? NEG : nh - gf);
+                // pass 1: T1, T3 and the running max of omega over the
+                // columns c0+1 .. c0+c (P[c]), from the previous row alone
+                float P[C];
+                float run = NEG, om = NEG;
+#pragma unroll
+                for (int c = 0; c < C; ++c) {
+                    const int code = (int)((bc[c >> 2] >> ((c & 3) * 8)) & 255u);
+                    const float p12 = M12[c], p3 = T3[c];
+                    float t1 = (code == ac ? match : mismatch) + lm3;
+                    float t3 = fmaxf(p12 - gh, p3 - g);
+                    if (c == 0) {
+                        t1 = first ? NEG : t1;
+                        t3 = first ? col0 : t3;
+                    }
+                    lm3 = fmaxf(p12, p3);
+                    M12[c] = t1;  // T1 until pass 2
+                    T3[c] = t3;
+                    P[c] = run;
+                    om = (gj[c + 1] + fmaxf(t1, t3)) - gh;
+                    run = fmaxf(run, om);
+                }
+                // pass 2: T2 from the record's prefix, the capture of row
+                // la, the record of the lane's last column
+                float pm = NEG;
+                float t2s[C];
+#pragma unroll
+                for (int c = 0; c < C; ++c) {
+                    pm = fmaxf(rE, P[c]);
+                    t2s[c] = pm - gj[c];
+                    if (c == 0) t2s[c] = first ? NEG : t2s[c];
+                }
+                if (i == lA) {
+                    if (want_row) {
+                        put_row<C>(orow, ncol, c0, lB, M12, t2s, T3);
+                    } else if (c0 <= lB && lB < c0 + C) {
+#pragma unroll
+                        for (int c = 0; c < C; ++c) {
+                            if (c0 + c == lB) {
+                                fin[0] = M12[c];
+                                fin[1] = t2s[c];
+                                fin[2] = T3[c];
+                            }
+                        }
+                    }
+                }
+#pragma unroll
+                for (int c = 0; c < C; ++c) M12[c] = fmaxf(M12[c], t2s[c]);
+                ox = fmaxf(M12[C - 1], T3[C - 1]);
+                oE = fmaxf(pm, om);
+                if (lane == 31) {
+                    if (warp + 1 < NW)
+                        rout[i & (kRing - 1)] = make_float2(ox, oE);
+                    else if (feed)
+                        st_link(lout + i, ox, oE, (unsigned)i);
+                }
             }
         }
         __syncthreads();
     }
-#undef TBUF
+}
+
+template <int C>
+int strip_launch(const uint8_t* a, const uint8_t* b, const int32_t* la,
+                 const int32_t* lb, const int32_t* st, float* out, void* link,
+                 int* ticket, int B, int m, int n, int warps, int nstrips,
+                 int want_row, float g, float h, float match, float mismatch,
+                 cudaStream_t stream) {
+    strip_kernel<C><<<B * nstrips, 32 * warps, 0, stream>>>(
+        a, b, la, lb, st, out, static_cast<uint4*>(link), ticket, B, m, n,
+        nstrips, want_row, g, h, match, mismatch);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// a: (B, m) u8; b: (B, n) u8; la/lb/st: (B,) i32; out: finals (B, 3) f32
-// or, with want_row, rows (B, 3, n+1) f32; rec: B * nstrips * m records
-// of 4 f32; cnt: B * nstrips i32 zeros; ticket: one i32 zero. threads a
-// multiple of 32, C columns per thread, nstrips * threads * C >= n + 1;
-// smem bytes = 128 + (threads*C rounded up to 16) + 24 * (threads*C + 1).
-// Returns a cudaError_t code.
+// a: (B, m) u8; b: (B, n) u8; la/lb/st: (B,) i32 with la <= m, lb <= n;
+// out: finals (B, 3) f32 of -inf or, with want_row, rows (B, 3, n+1) f32;
+// link: B * nstrips * (m + 1) 16-byte lines of zeros; ticket: one i32
+// zero. C columns a lane (4, 8 or 16), warps 1..8 a CTA, nstrips strips of
+// warps * 32 * C columns, the last one holding column n. Returns a
+// cudaError_t code.
 int long_fill(const uint8_t* a, const uint8_t* b, const int32_t* la,
-              const int32_t* lb, const int32_t* st, float* out, void* rec,
-              int* cnt, int* ticket, int B, int m, int n, int C, int threads,
-              int nstrips, int want_row, long long smem, float g, float h,
-              float match, float mismatch, void* stream) {
+              const int32_t* lb, const int32_t* st, float* out, void* link,
+              int* ticket, int B, int m, int n, int C, int warps, int nstrips,
+              int want_row, float g, float h, float match, float mismatch,
+              void* stream) {
     if (B == 0) return 0;
-    cudaError_t e = cudaFuncSetAttribute(
-        strip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    strip_kernel<<<B * nstrips, threads, (size_t)smem,
-                   (cudaStream_t)stream>>>(
-        a, b, la, lb, st, out, static_cast<float4*>(rec), cnt, ticket, m, n,
-        C, nstrips, want_row, g, h, match, mismatch);
-    return (int)cudaGetLastError();
+    const long long W = 32LL * warps * C;
+    if ((C != 4 && C != 8 && C != 16 && C != 24 && C != 32) || warps < 1 ||
+        warps > kMaxWarps ||
+        nstrips < 1 || m < 0 || n < 0 || nstrips * W < n + 1 ||
+        (nstrips - 1) * W >= n + 1)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+#define STRIP_LAUNCH(CC)                                                    \
+    return strip_launch<CC>(a, b, la, lb, st, out, link, ticket, B, m, n,   \
+                            warps, nstrips, want_row, g, h, match, mismatch, \
+                            s)
+    if (C == 4) STRIP_LAUNCH(4);
+    if (C == 8) STRIP_LAUNCH(8);
+    if (C == 16) STRIP_LAUNCH(16);
+    if (C == 24) STRIP_LAUNCH(24);
+    STRIP_LAUNCH(32);
+#undef STRIP_LAUNCH
 }
 
 }  // extern "C"

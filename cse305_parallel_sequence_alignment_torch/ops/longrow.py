@@ -6,20 +6,20 @@ Gotoh score sweep of a bucket of jobs, each with its own start type,
 returning either the finals (B, 3) float32 (T1, T2, T3) at (la, lb), the
 contract of ``pallas_long_score_batch``, or with ``want_row`` the whole
 row la of each job, (B, 3, n+1), the contract of
-``_longrow_lastrow_fins`` and ``pallas_long_lastrow``. Its plain version
-is K1's row sweep (ops/rowcb.py ``_sweep_plain``, global mode, ``gh``
-folded as in K1) with a last-row capture; the kernel
-(``csrc/longrow.cu``) cuts each job into column strips that pass
-boundary records to their right neighbour, in place of the TPU's
-host loop over 1024-lane column chunks.
+``_longrow_lastrow_fins`` and ``pallas_long_lastrow``, with -inf in the
+columns past the job's own lb. Its plain version is K1's row sweep
+(ops/rowcb.py ``_sweep_plain``, global mode, ``gh`` folded as in K1) with
+a last-row capture; the kernel (``csrc/longrow.cu`` ``strip_kernel<C>``)
+runs each job as a skewed wavefront of lanes of C columns, in strips
+that hand their edge records to the next, in place of the TPU's host
+loop over 1024-lane column chunks. ``strip_plan`` picks its geometry.
 
 ``batched_crossings`` finds, for a whole bisection level of the balanced
 partition at once, where an optimal path crosses each task's middle row:
-one batched forward + reverse last-row fill (K6, or K7 for at most four
-jobs of ``stair_threshold`` rows or more) and the combine on the device
-(``crossing_combine``). A crossing (j, t) names the table t of the step
-by which the path leaves cell (i_mid, j); the step that enters it may be
-of any table.
+one K6 launch fills every job's last row (forward and reverse) and the
+combine runs on the device (``crossing_combine``). A crossing (j, t)
+names the table t of the step by which the path leaves cell (i_mid, j);
+the step that enters it may be of any table.
 
 A CPU tensor goes to the plain PyTorch version; a CUDA tensor launches
 the kernel or raises.
@@ -45,8 +45,24 @@ from cse305_parallel_sequence_alignment_torch.utils.observability import (
     count,
 )
 
-# most columns a thread owns; the strip width is threads * C
+# most columns a thread owns in ``strip_geometry``'s strips
 MAX_C = 8
+
+# csrc/longrow.cu strip_kernel<C>: the columns a lane of each instance,
+# and the warps a CTA the plan takes (the kernel takes up to 8; 3, 6 and
+# 8 were never faster)
+PLAN_C = (4, 8, 16, 24, 32)
+PLAN_WARPS = (1, 2, 4)
+# The kernel's time on an H100, fitted (least squares on the log, rms
+# 5.4%) to 150 launches: 10 shapes of 1 to 32 jobs, C 4 to 32, 1, 2 or 4
+# warps a CTA (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6). A step
+# costs STEP_US[0] + STEP_US[1] * C us with at most one warp on each
+# scheduler, CROWD more for each further warp on the busiest one; the
+# wavefront's path is m steps, RAMP steps a lane of a row and HOP a strip.
+STEP_US = (0.1429, 0.01002)
+CROWD = 0.2787
+RAMP = 1.765
+HOP = 2.113
 
 
 def _row0_closed(n, g, h, start_type):
@@ -64,27 +80,55 @@ def _row0_closed(n, g, h, start_type):
 
 
 def long_fill_plain(a, b, la, lb, st, params, want_row=False):
-    """Plain PyTorch K6: finals (B, 3), or rows la (B, 3, n+1)."""
-    return _sweep_plain(a, b, la, lb, st, params, want_dirs=False,
-                        want_row=want_row)[1]
+    """Plain PyTorch K6: finals (B, 3), or rows la (B, 3, n+1), -inf past
+    each job's lb."""
+    out = _sweep_plain(a, b, la, lb, st, params, want_dirs=False,
+                       want_row=want_row)[1]
+    if want_row:
+        past = (torch.arange(out.shape[2], device=out.device)[None, :]
+                > lb.to(torch.int64)[:, None])
+        out = out.masked_fill(past[:, None, :], NEG_INF)
+    return out
 
 
 def strip_geometry(B, ncol, device):
     """(C, threads, nstrips) of B jobs of ``ncol`` columns: strips of
     ``threads * C`` columns, narrow enough that the B * nstrips CTAs are
-    about two per SM (K6, K7 and K8 cut their columns so)."""
+    about two per SM (the strip width of K8's first design,
+    ``ops/halostair.py`` ``halostair_staircase_step``)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     threads = min(256, -(-ncol // 32) * 32)
     C = max(1, min(MAX_C, ncol * B // (2 * sms * threads)))
     return C, threads, -(-ncol // (threads * C))
 
 
-def _geometry(B, n, device):
-    """(C, threads, nstrips, shared bytes) of a K6/K7 launch."""
-    C, threads, nstrips = strip_geometry(B, n + 1, device)
-    W = threads * C
-    smem = 128 + (W + 15) // 16 * 16 + 24 * (W + 1)
-    return C, threads, nstrips, smem
+def plan_cost(B, m, n, C, warps, sms):
+    """Modelled us of a K6 launch of B jobs of m rows and n + 1 columns at
+    C columns a lane and ``warps`` a CTA. The B x S CTAs spread over the
+    SMs, each CTA's warps over an SM's 4 schedulers; a wavefront runs at
+    the pace of its slowest strip, so the busiest scheduler sets the step
+    time."""
+    lanes = -(-(n + 1) // C)
+    S = -(-(n + 1) // (32 * warps * C))
+    per_sm = -(-B * S // sms)
+    crowd = max(1, -(-per_sm * warps // 4))
+    step = STEP_US[0] + STEP_US[1] * C
+    return (m + RAMP * lanes + HOP * S) * step * (1 + CROWD * (crowd - 1))
+
+
+def strip_plan(B, m, n, want_row, sms):
+    """(C, warps, strips) of a K6 launch of B jobs padded to m rows and
+    n + 1 columns: the least ``plan_cost``, ties to the smaller C, then
+    fewer warps. A pure function of the launch's shape, its capture mode
+    and the card's SM count. The capture mode moves no choice: a
+    captured row is 12 bytes a column, written once a job. In effect the
+    narrowest lanes whose warps leave no scheduler two, in CTAs of 4
+    warps: C = 8 for one 98 kb job, 24 for three, 16 for the partition's
+    later levels."""
+    del want_row
+    C, warps = min(((C, w) for C in PLAN_C for w in PLAN_WARPS),
+                   key=lambda g: (plan_cost(B, m, n, *g, sms), g))
+    return C, warps, -(-(n + 1) // (32 * warps * C))
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,35 +136,41 @@ def _entry():
     """ctypes entry point of csrc/longrow.cu."""
     fn = _build.cuda_library("longrow").long_fill
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong] + [ctypes.c_float] * 4
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] * 4 + [ctypes.c_void_p])
     return fn
 
 
-def _launch(a, b, la, lb, st, params, want_row):
-    """Launch csrc/longrow.cu on a CUDA bucket; returns its output."""
+@functools.lru_cache(maxsize=None)
+def _sms(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(a, b, la, lb, st, params, want_row, geometry=None):
+    """Launch csrc/longrow.cu on a CUDA bucket at ``geometry`` (C, warps,
+    strips), ``strip_plan``'s by default; returns its output."""
     B, m = a.shape
     n = b.shape[1]
     dev = a.device
-    C, threads, nstrips, smem = _geometry(B, n, dev)
+    C, warps, nstrips = geometry or strip_plan(
+        B, m, n, want_row, _sms(dev.index or 0))
     f32 = torch.float32
     if want_row:
         out = torch.empty((B, 3, n + 1), dtype=f32, device=dev)
     else:
         out = torch.full((B, 3), NEG_INF, dtype=f32, device=dev)
-    rec = torch.empty((B * nstrips * max(m, 1), 4), dtype=f32, device=dev)
-    # the strips' row counters, then the CTA ticket
-    cnt = torch.zeros(B * nstrips + 1, dtype=torch.int32, device=dev)
+    # the strips' link lines (16 bytes a row), then the CTA ticket
+    link = torch.zeros((B * nstrips * (m + 1) + 1, 4), dtype=torch.int32,
+                       device=dev)
     g, h, match, mismatch = params.astuple()
     with torch.cuda.device(dev):
         err = _entry()(
             a.data_ptr(), b.data_ptr(), la.data_ptr(), lb.data_ptr(),
-            st.data_ptr(), out.data_ptr(), rec.data_ptr(), cnt.data_ptr(),
-            cnt[B * nstrips:].data_ptr(), B, m, n, C, threads, nstrips,
-            int(want_row), smem, g, h, match, mismatch,
+            st.data_ptr(), out.data_ptr(), link.data_ptr(),
+            link[-1].data_ptr(), B, m, n, C, warps, nstrips, int(want_row),
+            g, h, match, mismatch,
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "long_fill")
+    _build.check(err, f"long_fill(C={C}, warps={warps}, strips={nstrips})")
     return out
 
 
@@ -265,13 +315,6 @@ def level_jobs(tasks):
     return jobs
 
 
-def stair_route(jobs, stair_threshold=4096):
-    """True when a level's jobs go one by one through K7: at most four
-    jobs, the longest of ``stair_threshold`` rows or more."""
-    return (len(jobs) <= 4
-            and max(len(x) for x, _, _ in jobs) >= stair_threshold)
-
-
 def unique_jobs(tasks):
     """``level_jobs(tasks)`` without repeats, and for each of those jobs
     its index in the list: a job that two tasks share (the same arrays,
@@ -287,37 +330,22 @@ def unique_jobs(tasks):
     return jobs, index
 
 
-def batched_crossings(tasks, params=ScoringParams(), device="cuda",
-                      stair_threshold=4096):
+def batched_crossings(tasks, params=ScoringParams(), device="cuda"):
     """Crossing points of a whole bisection level in one batched fill.
 
     ``tasks``: list of (a_enc, b_enc, i_mid, start_type, end_type), whose
-    jobs are ``unique_jobs(tasks)``. Under ``stair_route`` they go one by
-    one through K7, which fills one job on the whole card; otherwise all
-    jobs go through one K6 launch (counted as ``stair_jobs`` or
-    ``strip_jobs`` of the active recorder, their cells as
-    ``crossing_cells``). Returns [(j, t, score)] per task, equal to
-    ``crossing_on_row``'s."""
+    jobs are ``unique_jobs(tasks)``: one K6 launch fills all of them
+    (counted as one ``crossing_launches`` and ``strip_jobs`` jobs of the
+    active recorder, their cells as ``crossing_cells``). Returns [(j, t,
+    score)] per task, equal to ``crossing_on_row``'s."""
     if not tasks:
         return []
     jobs, index = unique_jobs(tasks)
     dev = torch.device(device)
-    stair = stair_route(jobs, stair_threshold)
-    count("stair_jobs" if stair else "strip_jobs", len(jobs))
+    count("crossing_launches")
+    count("strip_jobs", len(jobs))
     count("crossing_cells", sum(len(x) * len(y) for x, y, _ in jobs))
-    if stair:
-        from cse305_parallel_sequence_alignment_torch.ops.longstair import (
-            stair_lastrow_device,
-        )
-        rows = [stair_lastrow_device(
-            torch.from_numpy(np.ascontiguousarray(x)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(y)).to(dev), t, params)
-            for x, y, t in jobs]
-        W = max(r.shape[1] for r in rows)
-        rows = torch.stack([torch.nn.functional.pad(
-            r, (0, W - r.shape[1]), value=NEG_INF) for r in rows])
-    else:
-        rows = long_fill(*_job_bucket(jobs, dev), params, want_row=True)
+    rows = long_fill(*_job_bucket(jobs, dev), params, want_row=True)
     if len(jobs) < len(index):
         rows = rows[torch.tensor(index, device=dev)]
     n_vec = torch.tensor([len(t[1]) for t in tasks], dtype=torch.int64,

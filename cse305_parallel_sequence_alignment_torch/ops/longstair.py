@@ -4,10 +4,10 @@
 (cse305_parallel_sequence_alignment_tpu/ops/pallas_longstair.py:81). On
 the TPU it filled one pair with eight column chunks on the sublanes as a
 skewed pipeline, because a batch of one used one sublane of eight. On the
-H100 the column-strip staircase of ``csrc/longrow.cu`` already is that
-pipeline across CTAs: K7 launches it for one job, with strips narrow
-enough that the job alone covers the SMs. Its plain version is K6's plain
-fill on one job, and the kernel is bit-equal to it.
+H100 the skewed wavefront of ``csrc/longrow.cu`` already is that pipeline,
+over lanes, warps and CTAs: K7 launches it for a batch of one job, whose
+lanes alone cover the SMs (``longrow.strip_plan`` at B = 1). Its plain
+version is K6's plain fill on one job, and the kernel is bit-equal to it.
 
 A CPU tensor goes to the plain PyTorch version; a CUDA tensor launches
 the kernel or raises.

@@ -14,9 +14,9 @@ style, so every point lies on one optimal path):
 The segments are then solved as one mixed-type ``align_batch`` of the
 port's ``BatchAligner`` (K1 fill and K2 walk, or the route of its
 ``backend``) in ``traceback_mode="full"`` and their chains stitched. The
-last rows come from K6 (``ops/longrow.py``) or, for the few wide jobs of
-the top levels, K7 (``ops/longstair.py``); with ``fill_backend=
-"sharded"`` from the column-sharded pipeline over a mesh
+last rows come from K6 (``ops/longrow.py``), one launch a bisection
+level; with ``fill_backend="sharded"`` from the column-sharded pipeline
+over a mesh
 (``parallel/longseq.py`` ``longseq_lastrow``, kernel K8), task by task.
 """
 
@@ -57,8 +57,8 @@ from cse305_parallel_sequence_alignment_torch.utils.observability import (
 
 FILL_BACKENDS = ("auto", "longrow", "rowscan", "sharded")
 PHASES = ("crossing_ms", "segments_ms", "stitch_ms")
-COUNTERS = ("crossing_levels", "crossing_cells", "stair_jobs", "strip_jobs",
-            "segment_cells")
+COUNTERS = ("crossing_levels", "crossing_cells", "crossing_launches",
+            "strip_jobs", "segment_cells")
 _ZEROS = {**dict.fromkeys(PHASES, 0.0), **dict.fromkeys(COUNTERS, 0)}
 _CALLS = itertools.count()  # the call id of the profiler ranges
 
@@ -76,6 +76,8 @@ def crossing_on_row(a_enc, b_enc, i_mid, params, start_type, end_type,
     ``batched_crossings`` combines them. Returns (j, t, total_score)."""
     if lastrow_fn is None:
         lastrow_fn = functools.partial(long_lastrow, device=device)
+        # a K6 launch each for the forward and the reverse job
+        count("crossing_launches", 2)
         count("strip_jobs", 2)
     count("crossing_cells", len(a_enc) * len(b_enc))
     fwd = lastrow_fn(a_enc[:i_mid], b_enc, params, start_type)
@@ -201,9 +203,10 @@ class PartitionedAligner:
     ``PhaseTimer`` a call): the host-clock milliseconds of the crossing
     search, the segment solves and the stitch (``PHASES``, each ends with
     its results on the host), and ``COUNTERS``: the bisection levels that
-    filled, the cells their fills cover (forward and reverse), the jobs
-    through K7 (``stair_jobs``) and through K6 (``strip_jobs``), and the
-    segments' cells. Under a ``torch.profiler`` each phase is the range
+    filled, the cells their fills cover (forward and reverse), the K6
+    launches (``crossing_launches``: one a level of the level-batched
+    search) and the jobs they fill (``strip_jobs``), and the segments'
+    cells. Under a ``torch.profiler`` each phase is the range
     ``seqalign.<phase>``, ``align_batch``'s own ranges inside
     ``seqalign.segments``.
     """

@@ -219,9 +219,9 @@ def reader(name):
 def test_partition_counts_its_fills(p):
     """On a 2,000 x 3,000 pair: the crossing fills cover (2 - 2/p) m n
     cells over the bisection's levels and m n / 2 more for the first
-    level's reverse fill that ends in T1, within 0.1%; K7 (here the
-    levels of 1,000 rows) and K6 take the level's jobs, the first level's
-    forward job filled once for its two tasks."""
+    level's reverse fill that ends in T1, within 0.1%; each level's jobs
+    go through one K6 launch (``crossing_launches`` = the levels), the
+    first level's forward job filled once for its two tasks."""
     rng = np.random.default_rng(18)
     a, b = (rng.integers(0, 4, n).astype(np.uint8) for n in (2000, 3000))
     tasks = []
@@ -229,7 +229,7 @@ def test_partition_counts_its_fills(p):
     def record(level):
         tasks.append(len(level))
         return longrow.batched_crossings(level, ScoringParams(),
-                                         device="cpu", stair_threshold=1000)
+                                         device="cpu")
     with observability.PhaseTimer() as timer:
         partition.balanced_partition(a, b, p, crossings_fn=record,
                                      device="cpu")
@@ -239,8 +239,8 @@ def test_partition_counts_its_fills(p):
     assert got["crossing_levels"] == len(tasks) == math.log2(p)
     assert tasks[0] == 2 and tasks[1:] == [2 ** k for k in
                                            range(1, len(tasks))]
-    assert got["stair_jobs"] == 3
-    assert got["stair_jobs"] + got["strip_jobs"] == 2 * sum(tasks) - 1
+    assert got["crossing_launches"] == got["crossing_levels"]
+    assert got["strip_jobs"] == 2 * sum(tasks) - 1
 
 
 def test_partition_ranges_once_an_align():
