@@ -1,12 +1,17 @@
 """The traffic generator: a traffic file's parameters -> a pass.
 
 A pass is the fixed unit of work a cell repeats: a list of calls, each a
-list of (a, b) sequence pairs (ASCII strings). Everything that sets the
-amount of work (the lengths, which sequences are paired, how many pairs a
-call holds) is a fixed multiset taken from the traffic file and the
-configuration. The seed picks only the residues and the order of the
-calls and of the pairs inside a call. So every seed gives the same cells
-to compute, the same length buckets and the same chunks.
+list of (a, b) sequence pairs (ASCII strings). The lengths, which
+sequences are paired and how many pairs a call holds are a fixed multiset
+taken from the traffic file and the configuration. The seed picks only
+the residues and the order of the calls and of the pairs inside a call.
+So every seed gives the same lengths and the same cells to count, and,
+for a batch of pairs (``align_batch``), the same length buckets and the
+same chunks. It does not give the partition (``PartitionedAligner``) the
+same work: where a pair's first solve ends in T3 it is solved a second
+time, and its segments' widths, and with them their buckets, chunks and
+kernels, follow where the optimal path crosses the special rows. Both
+follow the residues.
 
 The traffic file's ``calls.kind`` names the kind of traffic, built by
 ``generators/<kind>.py``'s ``calls(spec, residues, rng, scale,

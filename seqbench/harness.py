@@ -172,7 +172,7 @@ def run(cell_name, seed, seconds, trace, device="cuda", t_start=None,
     result["window"] = {"seconds": elapsed, "passes": passes,
                         "calls": passes * len(passage.calls), "checked": checked,
                         "check_s": check_s, "setup_marks_s": marks,
-                        "pass_s": pass_s}
+                        "pass_s": pass_s, "spans": readings.spans}
     result["compared"] = {k: {"value": v, "limit": limits[k]}
                           for k, v in numbers.items()}
     return result

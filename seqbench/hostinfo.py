@@ -1,6 +1,9 @@
 """What a run ran on: the host's CPUs and load, the card's clocks and
 power. Printed on standard error before the result, so that a noisy run
-can be read against its host."""
+can be read against its host. ``proc_cpu_s`` is this process's user
+and system seconds so far: from the line before set-up makes the pass to
+the line after the window, it grows by what the pass, the warm pass and
+the window burnt on every thread."""
 
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ def cpu():
             "cpu_mhz": round(sum(mhz) / len(mhz)) if mhz else None,
             "affinity": len(os.sched_getaffinity(0)),
             "cpu_max": quota,
-            "loadavg": [round(x, 2) for x in os.getloadavg()]}
+            "loadavg": [round(x, 2) for x in os.getloadavg()],
+            "proc_cpu_s": round(sum(os.times()[:2]), 3)}
 
 
 def card():

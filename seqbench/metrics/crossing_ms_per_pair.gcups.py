@@ -1,7 +1,7 @@
 """The crossing search of ``PartitionedAligner.align``, ms a pair: its
-``last_phases`` ``crossing_ms`` (host clock: the bisection's K6 and K7
-fills and their combines, each level's results on the host) summed over
-the window's pairs."""
+``last_phases`` ``crossing_ms`` (host clock: the bisection's K6 fills,
+one a level, and their combines, each level's results on the host)
+summed over the window's pairs."""
 
 
 def read(r):

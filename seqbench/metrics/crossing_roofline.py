@@ -1,6 +1,6 @@
 """The crossing search's share of its roofline over the traced passes:
-the least time of its work over the time on the card of K6 and K7
-(``csrc/longrow.cu`` ``strip_kernel``, one kernel for both), in %.
+the least time of its work over the time on the card of K6
+(``csrc/longrow.cu`` ``strip_kernel``, every instance), in %.
 
 The work is reckoned from the pass and the configuration's
 ``partitions`` p, as ``PartitionedAligner.align`` fills it: every level

@@ -170,15 +170,19 @@ def test_control_fails_the_comparison(name):
 
 def test_a_cell_goes_in_by_files_alone(monkeypatch, tmp_path):
     """A copy of the first cell under a new name, in a manifest that adds
-    only its workload entry, runs its small pass correct and reports its
-    end-to-end metrics, ``gcups`` and ``setup_s`` among them, once its
-    cells file is there; without that file the guard's one finding is the
-    file to add."""
+    only its workload entry and its name to the ``workloads`` of the
+    end-to-end metrics that list the first cell, runs its small pass
+    correct and reports its end-to-end metrics, ``gcups`` and ``setup_s``
+    among them, once its cells file is there; without that file the
+    guard's one finding is the file to add."""
     old = CELLS[0]
     new = f"{old}-files-alone"
     bench = dict(BENCH, workloads=BENCH["workloads"] + [
         dict(next(w for w in BENCH["workloads"] if w["name"] == old),
-             name=new)])
+             name=new)], end_to_end=[
+        dict(m, workloads=m["workloads"] + [new])
+        if old in m.get("workloads", []) else m
+        for m in BENCH["end_to_end"]])
     monkeypatch.setattr(manifest, "load", lambda: bench)
     for path in FOLDERS["cells"].glob("*.py"):
         shutil.copy(path, tmp_path / path.name)

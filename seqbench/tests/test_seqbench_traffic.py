@@ -1,8 +1,11 @@
-"""Every seed gives a cell the same work: the same calls, the same
-multiset of pair lengths and so the same cells, and the same length
-buckets; only the residues and the order differ."""
+"""Every seed gives a cell the same calls, the same multiset of pair
+lengths and so the same cells to count, and the same length buckets of
+the batch (quantum 128); only the residues and the order differ. That is
+not the same work for the partition, whose second solves and segment
+widths follow the residues."""
 
 import collections
+import hashlib
 
 import pytest
 
@@ -22,6 +25,45 @@ def work(p, swap):
                                    (-(-lb // QUANTUM) * QUANTUM).tolist()))
     return (sorted(len(c) for c in p.calls),
             sorted(zip(la.tolist(), lb.tolist())), keys)
+
+
+# sha256 of each cell's pass as ``digest`` reads it: (workload, seed) ->
+# digest. A change to a generator or a traffic file that changes a pass
+# shows here.
+PASSES = {
+    ("dna-genes-batch", 0):
+        "aa2443a2f4aa4b95d359727a0e845c1e17843ce1914e2ea1632c104dcf3e83b1",
+    ("dna-genes-batch", 2 ** 31 + 12345):
+        "802165f579977b09591465b9119ee800c316901b99b3e2bddd069709e704136c",
+    ("dna-genes-batch", 3210000001):
+        "3d8c8a7e7b20a2c2294a775c20fa9ed6e3f87ddcaba7f30aae786c516fb19be0",
+    ("dna-genes-batch", 2 ** 33 + 7):
+        "031b925f69e3592a336d7abac99657956f94f866e3a0e48a4b1d04d8cc02ae10",
+    ("dna-genes-partition", 0):
+        "008cb1bc3fbafa6f17edd6552a6fba67ff93cb32858596cb72dcd2ed196d51b7",
+    ("dna-genes-partition", 2 ** 31 + 12345):
+        "0b973b00b04a2ee5e30787a02a39020d3dde70cd1cd741b3a372f8c74c31e3c7",
+    ("dna-genes-partition", 3210000001):
+        "2ebfdaf23f8e9962a20dfea4c9eb9f28d76f2d8ff42c51097878ea3b0d97f56d",
+    ("dna-genes-partition", 2 ** 33 + 7):
+        "79381d3b603ebaeb48e6e729e22030c2a0ee430031e068bc17dceee2372bd40a",
+}
+
+
+def digest(calls):
+    h = hashlib.sha256()
+    for call in calls:
+        h.update(b"|call|")
+        for a, b in call:
+            h.update(a.encode() + b"," + b.encode() + b";")
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("name,seed", list(PASSES))
+def test_pass_is_the_same_bytes(name, seed):
+    cell = manifest.Cell(BENCH, name)
+    p = generate.make_pass(cell.traffic, cell.config, seed)
+    assert digest(p.calls) == PASSES[name, seed]
 
 
 @pytest.mark.parametrize("name", CELLS)
