@@ -73,8 +73,8 @@ P-micro2):
     version, bit for bit, on the first, a middle and the row-la call of
     each entry of the four-entry run (recorded from a second run, which
     must give the same finals), each timed, the middle one also at other
-    geometries and on the shared-memory staircase; a middle call of the
-    one-card run (98,010 columns, "K8 one entry") likewise; the kernel at
+    geometries; a middle call of the one-card run (98,010 columns, "K8
+    one entry") likewise; the kernel at
     a grid of (C, threads) at both widths, with the fit of the geometry
     rule's model; and on every call of a 3 k x 12 k pair at g=0.3, h=1.7
     and of a 300 x 5,000 pair for each start type
@@ -752,11 +752,9 @@ def phase_long_kernels(report):
 def level_tasks(ea, eb, p, params):
     """The tasks of each bisection level of (ea, eb) into p segments,
     recorded from a run of the level-batched crossing search."""
-    from cse305_parallel_sequence_alignment_torch.ops.longrow import (
-        batched_crossings,
-    )
     from cse305_parallel_sequence_alignment_torch.parallel.partition import (
         balanced_partition,
+        batched_crossings,
     )
     levels = []
 
@@ -784,6 +782,7 @@ def phase_long_main(report, runs):
         longrow,
         longstair,
     )
+    from cse305_parallel_sequence_alignment_torch.parallel import partition
 
     params = ScoringParams()
     dev = torch.device("cuda")
@@ -791,8 +790,8 @@ def phase_long_main(report, runs):
     for run in runs:
         levels = level_tasks(run["ea"], run["eb"], run["p"], params)
         for lvl, tasks in enumerate(levels, 1):
-            jobs = longrow.unique_jobs(tasks)[0]
-            bucket = longrow._job_bucket(jobs, dev)
+            jobs = partition.unique_jobs(tasks)[0]
+            bucket = longrow.job_bucket(jobs, dev)
             la, lb = (v.cpu().numpy().astype(np.int64) for v in bucket[2:4])
             B = len(jobs)
             rows_p, pms = timed(lambda: longrow.long_fill_plain(
@@ -1032,7 +1031,7 @@ def check_partition(runs):
         t_whole = time.perf_counter() - t0
         run["whole"] = float(whole[0])
         # the whole pair's K6 finals, which the long-pair pipeline must give
-        run["k6_finals"] = longrow.long_fill(*longrow._job_bucket(
+        run["k6_finals"] = longrow.long_fill(*longrow.job_bucket(
             [(ea, eb, -1)], "cuda"), ScoringParams())[0].cpu().numpy()
         cs = score_chain(ea, eb, res.chain, ScoringParams())
         if not res.score == cs == float(whole[0]):
@@ -1351,10 +1350,8 @@ def check_k8(call, reps=0):
 def k8_alternatives(call, reps=3):
     """K8 on one recorded call at the geometry rule's choice, at the
     modelled best of each other C and at narrower and wider strips of the
-    rule's C, and the shared-memory staircase: {label: ms}; every
-    alternative's
-    outputs held bit for bit to the rule's (scratch carries, which the
-    repeats advance)."""
+    rule's C: {label: ms}; every alternative's outputs held bit for bit to
+    the rule's (scratch carries, which the repeats advance)."""
     from cse305_parallel_sequence_alignment_torch.ops import halostair
 
     a, b, halo, state, fin, *rest = call
@@ -1384,16 +1381,6 @@ def k8_alternatives(call, reps=3):
         _, times[f"C={geo[0]} threads={geo[1]} strips={geo[2]}"] = timed(
             lambda: halostair._launch(a, b, halo, s_t, f_t, *rest,
                                       geometry=geo), reps)
-    s_k, f_k = state.clone(), fin.clone()
-    h_k = halostair.halostair_staircase_step(a, b, halo, s_k, f_k, *rest)
-    err = max(max_err(x, y) for x, y in zip((h_k, s_k, f_k), want))
-    if err:
-        raise RuntimeError(f"the shared-memory staircase differs from K8 "
-                           f"by {err}")
-    s_t, f_t = state.clone(), fin.clone()
-    _, times["shared-memory staircase"] = timed(
-        lambda: halostair.halostair_staircase_step(a, b, halo, s_t, f_t,
-                                                   *rest), reps)
     return times
 
 

@@ -76,20 +76,12 @@
 //    = 4 and 8, 512 threads) and 255 (C = 16, 256 threads): C = 4 spilled
 //    at 1,024 threads (64 registers), C = 16 at 512 (128); a strip of
 //    1,024 threads at C = 4 was the slowest row step measured anyway.
-//
-// staircase_kernel, the first design, stays for comparison only (wrapper
-// ops/halostair.py halostair_staircase_step; no path launches it): strips
-// of 256 threads, H and T3 in shared memory, two barriers a row, records
-// published through a release count every 4 rows.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
-
-constexpr int kMaxThreads = 1024;
-constexpr int kPublish = 4;  // rows between two releases of a strip's count
 
 __device__ __forceinline__ float warp_incl_max(float v) {
     const int lane = threadIdx.x & 31;
@@ -99,18 +91,6 @@ __device__ __forceinline__ float warp_incl_max(float v) {
         if (lane >= s) v = fmaxf(v, o);
     }
     return v;
-}
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-    int v;
-    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
-                 : "=r"(v) : "l"(p) : "memory");
-    return v;
-}
-
-__device__ __forceinline__ void st_release(int* p, int v) {
-    asm volatile("st.release.gpu.global.s32 [%0], %1;"
-                 :: "l"(p), "r"(v) : "memory");
 }
 
 constexpr int kRowsMaxWarps = 32;
@@ -331,156 +311,6 @@ rows_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     }
 }
 
-// The first design: strips of 256 threads, rows in shared memory.
-__global__ void __launch_bounds__(kMaxThreads)
-staircase_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
-                 const float4* __restrict__ halo_in, float4* halo_out,
-                 float* __restrict__ state, float* __restrict__ fin,
-                 float4* rec, int* cnt, int* ticket, int nc, int R, int rows,
-                 int cap, int cs, int base, int sta, int C, int nstrips,
-                 float g, float h, float match, float mismatch) {
-    extern __shared__ __align__(16) char smem[];
-    __shared__ int s_cta;
-    const int tid = threadIdx.x;
-    const int lane = tid & 31, warp = tid >> 5;
-    const float NEG = -CUDART_INF_F;
-    const float gh = g + h;  // float32, as XLA folds g*j - g - h
-    if (tid == 0) s_cta = atomicAdd(ticket, 1);
-    __syncthreads();
-    const int s = s_cta;
-    const int W = blockDim.x * C;  // strip width
-    const int g0 = s * W;          // block column of local column 0
-    const int wcols = min(W, nc - g0);
-
-    // shared: warp totals (32 f32) | b (W u8, 16-aligned) | H and T3 of
-    // two row parities, [W + 1] each, local column -1 = the left edge's H
-    // | max(T1, T3) of the current row [W]
-    float* wsum = reinterpret_cast<float*>(smem);
-    uint8_t* bl = reinterpret_cast<uint8_t*>(smem + 128);
-    float* bufs = reinterpret_cast<float*>(smem + 128 + ((W + 15) & ~15));
-    const int stride = W + 1;
-#define HBUF(p) (bufs + (2 * (p)) * stride + 1)
-#define TBUF(p) (bufs + (2 * (p) + 1) * stride + 1)
-    float* m13b = bufs + 4 * stride;
-
-    for (int j = tid; j < wcols; j += blockDim.x) bl[j] = b[g0 + j];
-    const int c0 = tid * C;
-    const int c1 = min(c0 + C, wcols);
-    const bool last = s + 1 == nstrips;
-    float4* out_rec = last ? halo_out : rec + (size_t)s * (R + 1);
-    const float4* in_rec = s == 0 ? halo_in : rec + (size_t)(s - 1) * (R + 1);
-    const int* in_cnt = cnt + (s > 0 ? s - 1 : 0);  // read when s > 0
-    // the thread of the strip's last column writes its records
-    const bool owner = c0 < c1 && c1 == wcols;
-
-    // row base: the carries, and record 0 (H at the strip's last column)
-    for (int j = c0; j < c1; ++j) {
-        HBUF(0)[j] = state[g0 + j];
-        TBUF(0)[j] = state[nc + g0 + j];
-    }
-    if (owner) {
-        out_rec[0] = make_float4(NEG, NEG, HBUF(0)[c1 - 1], NEG);
-        if (!last) st_release(cnt + s, 1);
-    }
-    int avail = 0;  // records of strip s-1 seen published (thread 0)
-    if (tid == 0) {
-        if (s > 0) {
-            while ((avail = ld_acquire(in_cnt)) < 1) __nanosleep(64);
-        }
-        HBUF(0)[-1] = __ldcg(in_rec).z;  // H(base, g0 - 1)
-    }
-    __syncthreads();
-
-    for (int r = 1; r <= rows; ++r) {
-        const int cur = r & 1, prv = cur ^ 1;
-        const float* HP = HBUF(prv);
-        const float* TP = TBUF(prv);
-        float* HQ = HBUF(cur);
-        float* TQ = TBUF(cur);
-        const int ac = a[r - 1];
-        const float fi = (float)(base + r);
-        // column 0 of T3 (quirk: +3 acts as -1 on column 0)
-        const float col0_3 = (sta == -3) ? -g * fi
-                           : ((sta == 1 || sta == 2) ? NEG : -h - g * fi);
-
-        // pass 1: T1, T3, max(T1, T3) and the chunk-local prefix max of
-        // omega; HQ holds the prefix until pass 2
-        float run_max = NEG;
-        float m13l = NEG;  // max(T1, T3) of this row at column j-1
-        if (tid == 0) {
-            // left edge: record r of column g0-1
-            if (s > 0 && avail < r + 1) {
-                while ((avail = ld_acquire(in_cnt)) < r + 1) __nanosleep(64);
-            }
-            const float4 e = __ldcg(in_rec + r);
-            m13l = e.x;
-            run_max = e.y;
-            HQ[-1] = e.z;  // H(i, g0 - 1), the diagonal of row i+1
-        } else if (c0 < c1) {
-            // left neighbour column, recomputed from the previous row
-            const int jl = c0 - 1;
-            const float t1l = (bl[jl] == ac ? match : mismatch) + HP[jl - 1];
-            float t3l = fmaxf((HP[jl] - g) - h, TP[jl] - g);
-            if (cs + g0 + jl == 0) t3l = col0_3;
-            m13l = fmaxf(t1l, t3l);
-        }
-        for (int j = c0; j < c1; ++j) {
-            const int gj = cs + g0 + j;
-            const float t1 = (bl[j] == ac ? match : mismatch) + HP[j - 1];
-            float t3 = fmaxf((HP[j] - g) - h, TP[j] - g);
-            if (gj == 0) t3 = col0_3;
-            const float m13 = fmaxf(t1, t3);
-            const float omega = (g * (float)gj - gh) + m13l;
-            run_max = fmaxf(run_max, omega);
-            TQ[j] = t3;
-            m13b[j] = m13;
-            HQ[j] = run_max;
-            m13l = m13;
-        }
-
-        // block scan: exclusive prefix max of the chunk maxima
-        const float incl = warp_incl_max(run_max);
-        if (lane == 31) wsum[warp] = incl;
-        __syncthreads();
-        float wpre = (lane < warp) ? wsum[lane] : NEG;
-#pragma unroll
-        for (int k = 16; k > 0; k >>= 1)
-            wpre = fmaxf(wpre, __shfl_xor_sync(0xffffffffu, wpre, k));
-        float inwarp = __shfl_up_sync(0xffffffffu, incl, 1);
-        if (lane == 0) inwarp = NEG;
-        const float excl = fmaxf(wpre, inwarp);
-
-        // pass 2: T2 and H, the capture of row la, the strip's record
-        for (int j = c0; j < c1; ++j) {
-            const int gj = cs + g0 + j;
-            const float pm = fmaxf(HQ[j], excl);
-            const float t2 = pm - g * (float)gj;
-            const float hn = fmaxf(m13b[j], t2);
-            HQ[j] = hn;
-            if (r == cap) {
-                fin[g0 + j] = (bl[j] == ac ? match : mismatch) + HP[j - 1];
-                fin[nc + g0 + j] = t2;
-                fin[2 * nc + g0 + j] = TQ[j];
-            }
-            if (owner && j == c1 - 1) {
-                __stcg(out_rec + r, make_float4(m13b[j], pm, hn, NEG));
-                if (!last && (r % kPublish == 0 || r == rows))
-                    st_release(cnt + s, r + 1);
-            }
-        }
-        __syncthreads();
-    }
-
-    // row base + rows: the carries
-    const int fp = rows & 1;
-    for (int j = c0; j < c1; ++j) {
-        state[g0 + j] = HBUF(fp)[j];
-        state[nc + g0 + j] = TBUF(fp)[j];
-    }
-#undef HBUF
-#undef TBUF
-}
-
 template <int C>
 int rows_launch(const uint8_t* a, const uint8_t* b, const void* halo_in,
                 void* halo_out, float* state, float* fin, void* link,
@@ -528,34 +358,6 @@ int halostair_step(const uint8_t* a, const uint8_t* b, const void* halo_in,
     if (C == 8) ROWS_LAUNCH(8);
     ROWS_LAUNCH(16);
 #undef ROWS_LAUNCH
-}
-
-// The shared-memory staircase, for comparison only. a: (R,) u8; b: (nc,) u8;
-// halo_in, halo_out: (R + 1) float4; state: (2, nc) f32 and fin: (3,
-// nc) f32, both updated in place; rec: (nstrips - 1) * (R + 1) float4 of
-// scratch; cnt: nstrips + 1 i32 zeros (the strips'
-// counts, then the ticket). rows in 1..R; cap in 1..rows or 0; threads a
-// multiple of 32, C columns per thread, nstrips * threads * C >= nc; smem
-// bytes = 128 + (threads*C rounded up to 16) + 4 * (5 * threads*C + 4).
-// Returns a cudaError_t code.
-int halostair_staircase_step(const uint8_t* a, const uint8_t* b,
-                             const void* halo_in, void* halo_out,
-                             float* state, float* fin, void* rec, int* cnt,
-                             int nc, int R, int rows, int cap, int cs,
-                             int base, int sta, int C, int threads,
-                             int nstrips, long long smem, float g, float h,
-                             float match, float mismatch, void* stream) {
-    cudaError_t e = cudaFuncSetAttribute(
-        staircase_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    staircase_kernel<<<nstrips, threads, (size_t)smem,
-                       (cudaStream_t)stream>>>(
-        a, b, static_cast<const float4*>(halo_in),
-        static_cast<float4*>(halo_out), state, fin,
-        static_cast<float4*>(rec), cnt, cnt + nstrips, nc, R, rows, cap, cs,
-        base, sta, C, nstrips, g, h, match, mismatch);
-    return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -47,13 +47,10 @@ The kernel (``csrc/halostair.cu`` ``rows_kernel<C>``) keeps each
 thread's C columns of the rows in registers, makes one pass and crosses
 one barrier a row, and cuts the block into strips (one CTA each, 24 to
 55 at the pipeline's widths) that hand each other a record every row;
-``halostair_geometry`` picks (C, threads, strips). The first design
-(``staircase_kernel``, narrow strips in shared memory) stays callable as
-``halostair_staircase_step`` for comparison on the card; no path
-launches it. The plain version (``halostair_step_plain``) runs the same
-operations row by row with ``torch.cummax`` for the prefix max. A CPU
-tensor goes to the plain version; a CUDA tensor launches the kernel or
-raises.
+``halostair_geometry`` picks (C, threads, strips). The plain version
+(``halostair_step_plain``) runs the same operations row by row with
+``torch.cummax`` for the prefix max. A CPU tensor goes to the plain
+version; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -65,9 +62,6 @@ import torch
 
 from cse305_parallel_sequence_alignment_torch.core import NEG_INF
 from cse305_parallel_sequence_alignment_torch.ops import _build
-from cse305_parallel_sequence_alignment_torch.ops.longrow import (
-    strip_geometry,
-)
 from cse305_parallel_sequence_alignment_torch.ops.rowcb import SMS
 
 # csrc/halostair.cu rows_kernel: columns a thread, and the most threads a
@@ -235,18 +229,13 @@ def halostair_geometry(nc, R):
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(name):
-    """ctypes entry point of csrc/halostair.cu: ``halostair_step`` (8
-    pointers, 10 ints, 4 floats, stream) or the first design's
-    ``halostair_staircase_step`` (8 pointers, 10 ints, shared bytes, 4
-    floats, stream)."""
-    fn = getattr(_build.cuda_library("halostair"), name)
+def _entry():
+    """ctypes entry point of csrc/halostair.cu ``halostair_step`` (8
+    pointers, 10 ints, 4 floats, stream)."""
+    fn = _build.cuda_library("halostair").halostair_step
     fn.restype = ctypes.c_int
-    ints = [ctypes.c_int] * 10
-    if name != "halostair_step":
-        ints.append(ctypes.c_longlong)
-    fn.argtypes = ([ctypes.c_void_p] * 8 + ints + [ctypes.c_float] * 4
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                   + [ctypes.c_float] * 4 + [ctypes.c_void_p])
     return fn
 
 
@@ -267,7 +256,7 @@ def _launch(a, b, halo_in, state, fin, cs, base, la, start_type, params,
     cap = la - base if la - base <= R else 0
     g, h, match, mismatch = params.astuple()
     with torch.cuda.device(dev):
-        err = _entry("halostair_step")(
+        err = _entry()(
             a.data_ptr(), b.data_ptr(), halo_in.data_ptr(),
             halo_out.data_ptr(), state.data_ptr(), fin.data_ptr(),
             link.data_ptr(), link[-1].data_ptr(), nc, R, rows, cap, cs,
@@ -275,37 +264,6 @@ def _launch(a, b, halo_in, state, fin, cs, base, la, start_type, params,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, f"halostair_step(C={C}, threads={threads}, "
                       f"strips={nstrips})")
-    return halo_out
-
-
-def halostair_staircase_step(a, b, halo_in, state, fin, cs, base, la,
-                             start_type, params):
-    """The first design (``staircase_kernel``) on a CUDA call, for
-    comparison on the card only: the same outputs as ``halostair_step``.
-    Counts nothing."""
-    _check(a, b, halo_in, state, fin, base, la)
-    R, nc = a.shape[0], b.shape[0]
-    dev = a.device
-    C, threads, nstrips = strip_geometry(1, nc, dev)
-    W = threads * C
-    smem = 128 + (W + 15) // 16 * 16 + 4 * (4 * (W + 1) + W)
-    halo_out = torch.full((R + 1, 4), NEG_INF, dtype=torch.float32,
-                          device=dev)
-    rec = torch.empty((max(nstrips - 1, 1) * (R + 1), 4),
-                      dtype=torch.float32, device=dev)
-    # the strips' record counters, then the CTA ticket
-    cnt = torch.zeros(nstrips + 1, dtype=torch.int32, device=dev)
-    rows = min(R, la - base)
-    cap = la - base if la - base <= R else 0
-    g, h, match, mismatch = params.astuple()
-    with torch.cuda.device(dev):
-        err = _entry("halostair_staircase_step")(
-            a.data_ptr(), b.data_ptr(), halo_in.data_ptr(),
-            halo_out.data_ptr(), state.data_ptr(), fin.data_ptr(),
-            rec.data_ptr(), cnt.data_ptr(), nc, R, rows, cap, cs, base,
-            start_type, C, threads, nstrips, smem, g, h, match, mismatch,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "halostair_staircase_step")
     return halo_out
 
 

@@ -13,11 +13,13 @@ style, so every point lies on one optimal path):
 
 The segments are then solved as one mixed-type ``align_batch`` of the
 port's ``BatchAligner`` (K1 fill and K2 walk, or the route of its
-``backend``) in ``traceback_mode="full"`` and their chains stitched. The
-last rows come from K6 (``ops/longrow.py``), one launch a bisection
-level; with ``fill_backend="sharded"`` from the column-sharded pipeline
-over a mesh
-(``parallel/longseq.py`` ``longseq_lastrow``, kernel K8), task by task.
+``backend``) in ``traceback_mode="full"`` and their chains stitched.
+
+The crossing search is ``batched_crossings``, one call a bisection level
+on every route; the level's last rows come from one K6 launch
+(``ops/longrow.py``) or job by job from a ``lastrow_fn``. A crossing
+(j, t) names the table t of the step by which the path leaves cell
+(i_mid, j); the step that enters it may be of any table.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from cse305_parallel_sequence_alignment_torch.core import (
+    NEG_INF,
     AlignmentResult,
     LazyChain,
     ScoringParams,
@@ -42,10 +45,9 @@ from cse305_parallel_sequence_alignment_torch.models.batch import (
 )
 from cse305_parallel_sequence_alignment_torch.native import walker
 from cse305_parallel_sequence_alignment_torch.ops.longrow import (
-    batched_crossings,
-    crossing_combine,
+    job_bucket,
+    long_fill,
     long_lastrow,
-    task_forced,
 )
 from cse305_parallel_sequence_alignment_torch.parallel.longseq import (
     longseq_lastrow,
@@ -68,27 +70,167 @@ def _enc(s):
         np.asarray(s, np.uint8)
 
 
+def _totals(rows, n_vec, h):
+    """(F, R, matched) of assembled last rows: F (C, 3, W) the forward
+    rows, R the reverse rows read at the forward column j (reverse column
+    n - j), and matched = F + R + (0, h, h), the refund h where a gap runs
+    on through the cell."""
+    F, R = rows[0::2], rows[1::2]
+    C, _, W = F.shape
+    jv = torch.arange(W, device=rows.device)[None, :]
+    ridx = (n_vec[:, None] - jv).clamp(0, W - 1)
+    rrev = R.gather(2, ridx[:, None, :].expand(C, 3, W))
+    hoff = torch.tensor([0.0, h, h], dtype=torch.float32,
+                        device=rows.device)[None, :, None]
+    return F, rrev, F + rrev + hoff
+
+
+def _argbest(tot, n_vec):
+    """(j, t, best) of each crossing's totals (C, 3, W), columns past
+    n_vec masked: ties to the smallest j, then T1, T2, T3 (key j*4 + t)."""
+    C, _, W = tot.shape
+    dev = tot.device
+    jv = torch.arange(W, device=dev)[None, :]
+    tot = torch.where((jv <= n_vec[:, None])[:, None, :], tot,
+                      torch.tensor(NEG_INF, dtype=torch.float32, device=dev))
+    best = tot.amax(dim=(1, 2))
+    key = jv[:, None, :] * 4 + torch.arange(3, device=dev)[None, :, None]
+    key = torch.where(tot >= best[:, None, None], key, 1 << 30)
+    kmin = key.reshape(C, -1).amin(dim=1)
+    return kmin // 4, kmin % 4 + 1, best
+
+
+def combine_rows(rows, n_vec, h):
+    """Matched crossing combine on the device over assembled last rows
+    (the JAX package's ``_combine_rows``).
+
+    ``rows``: (2C, 3, W) with row 2c the forward fill of crossing c and
+    row 2c+1 its reverse fill; ``n_vec``: (C,) int64 widths. The argmax
+    over (j, t) of T1+TR1, T2+TR2+h, T3+TR3+h (the gap-open refund when a
+    gap is split), ties to the smallest j, then T1, T2, T3. It sees only
+    paths that enter and leave (i_mid, j) by steps of one table, so its
+    best can lie below the optimum (``crossing_combine``). Returns (j, t,
+    best) tensors of shape (C,)."""
+    return _argbest(_totals(rows, n_vec, h)[2], n_vec)
+
+
+def crossing_combine(rows, n_vec, h, forced):
+    """Where an optimal path crosses each task's middle row.
+
+    The total of (j, t) is the best path that leaves (i_mid, j) by a step
+    of table t, whatever table the step into it: max(T_t + TR_t + h_t,
+    max_{s != t} T_s + TR_t), the refund h_t = h for a gap that runs on
+    through the cell. ``forced`` (C,) int64 is, for a forward fill of no
+    rows, its positive start type (the path's first step out of the
+    corner j = 0 is of that table), else 0. The crossing is
+    ``combine_rows``'s where its best is the optimum, else the argmax of
+    these totals, ties as there. Returns (j, t, best) tensors of shape
+    (C,)."""
+    F, rrev, matched = _totals(rows, n_vec, h)
+    jm, tm, bm = _argbest(matched, n_vec)
+    other = torch.stack([torch.maximum(F[:, 1], F[:, 2]),
+                         torch.maximum(F[:, 0], F[:, 2]),
+                         torch.maximum(F[:, 0], F[:, 1])], 1)
+    tot = torch.maximum(matched, other + rrev)
+    # a forward fill of no rows: at the corner only the forced step leaves
+    at = forced > 0
+    t0 = (forced - 1).clamp(0, 2)[:, None]
+    corner = torch.full_like(tot[:, :, 0], NEG_INF)
+    corner.scatter_(1, t0, rrev[:, :, 0].gather(1, t0))
+    tot[:, :, 0] = torch.where(at[:, None], corner, tot[:, :, 0])
+    j, t, best = _argbest(tot, n_vec)
+    matched = bm >= best
+    return (torch.where(matched, jm, j), torch.where(matched, tm, t),
+            best)
+
+
+def task_forced(tasks):
+    """``crossing_combine``'s ``forced`` of a level's tasks: the start type
+    of a task whose forward fill has no rows, if positive, else 0."""
+    return [st if (i_mid == 0 and st > 0) else 0
+            for (_, _, i_mid, st, _) in tasks]
+
+
+def level_jobs(tasks):
+    """The fill jobs [(a, b, start_type)] of a bisection level: each task
+    (a_enc, b_enc, i_mid, start_type, end_type) adds a forward job
+    (a[:i_mid], b, start_type) and a reverse job (a[i_mid:] reversed,
+    b reversed, end_type: the reversal keeps A's and B's roles, so the
+    types map to themselves)."""
+    jobs = []
+    for (a_e, b_e, i_mid, st, en) in tasks:
+        a_e = np.asarray(a_e, np.uint8)
+        b_e = np.asarray(b_e, np.uint8)
+        jobs.append((a_e[:i_mid], b_e, st))
+        jobs.append((a_e[i_mid:][::-1], b_e[::-1], en))
+    return jobs
+
+
+def unique_jobs(tasks):
+    """``level_jobs(tasks)`` without repeats, and for each of those jobs
+    its index in the list: a job that two tasks share (the same arrays,
+    split row, direction and boundary type) is filled once."""
+    jobs, index, seen = [], [], {}
+    for k, job in enumerate(level_jobs(tasks)):
+        a_e, b_e, i_mid, st, en = tasks[k // 2]
+        key = (id(a_e), id(b_e), i_mid, k % 2, en if k % 2 else st)
+        if key not in seen:
+            seen[key] = len(jobs)
+            jobs.append(job)
+        index.append(seen[key])
+    return jobs, index
+
+
+def _k6_lastrow(a_enc, b_enc, params, start_type, device):
+    """``long_lastrow``, counted as one K6 launch of one job."""
+    count("crossing_launches")
+    count("strip_jobs")
+    return long_lastrow(a_enc, b_enc, params, start_type, device)
+
+
+def batched_crossings(tasks, params=ScoringParams(), device="cuda",
+                      lastrow_fn=None):
+    """Crossing points of a whole bisection level, on every route.
+
+    ``tasks``: list of (a_enc, b_enc, i_mid, start_type, end_type), whose
+    jobs are ``unique_jobs(tasks)`` (their cells count as
+    ``crossing_cells``). One K6 launch fills all of them (one
+    ``crossing_launches``, ``strip_jobs`` jobs), or ``lastrow_fn(a, b,
+    params, start_type) -> (3, n+1)`` gives each job's last row, padded
+    with -inf; one ``crossing_combine`` on ``device`` reads the rows.
+    Returns [(j, t, score)] per task."""
+    if not tasks:
+        return []
+    jobs, index = unique_jobs(tasks)
+    dev = torch.device(device)
+    count("crossing_cells", sum(len(x) * len(y) for x, y, _ in jobs))
+    if lastrow_fn is None:
+        count("crossing_launches")
+        count("strip_jobs", len(jobs))
+        rows = long_fill(*job_bucket(jobs, dev), params, want_row=True)
+    else:
+        width = max(len(y) for _, y, _ in jobs) + 1
+        rows = torch.full((len(jobs), 3, width), NEG_INF)
+        for k, (x, y, t) in enumerate(jobs):
+            rows[k, :, : len(y) + 1] = torch.as_tensor(
+                lastrow_fn(x, y, params, t))
+        rows = rows.to(dev)
+    if len(jobs) < len(index):
+        rows = rows[torch.tensor(index, device=dev)]
+    n_vec = torch.tensor([len(t[1]) for t in tasks], dtype=torch.int64,
+                         device=dev)
+    forced = torch.tensor(task_forced(tasks), dtype=torch.int64, device=dev)
+    jb, tb, best = (x.cpu().tolist() for x in
+                    crossing_combine(rows, n_vec, params.h, forced))
+    return list(zip(jb, tb, best))
+
+
 def crossing_on_row(a_enc, b_enc, i_mid, params, start_type, end_type,
                     device="cuda", lastrow_fn=None):
-    """Best crossing cell (j, t) on row ``i_mid`` of an optimal path, from
-    the forward and reverse last rows of ``lastrow_fn(a, b, params,
-    start_type) -> (3, n+1)``, by default K6 on ``device``, combined as
-    ``batched_crossings`` combines them. Returns (j, t, total_score)."""
-    if lastrow_fn is None:
-        lastrow_fn = functools.partial(long_lastrow, device=device)
-        # a K6 launch each for the forward and the reverse job
-        count("crossing_launches", 2)
-        count("strip_jobs", 2)
-    count("crossing_cells", len(a_enc) * len(b_enc))
-    fwd = lastrow_fn(a_enc[:i_mid], b_enc, params, start_type)
-    # the reversed problem keeps A's and B's roles, so types map to
-    # themselves
-    rev = lastrow_fn(a_enc[i_mid:][::-1], b_enc[::-1], params, end_type)
-    rows = torch.from_numpy(np.stack([fwd, rev]).astype(np.float32))
-    forced = task_forced([(None, None, i_mid, start_type, None)])
-    j, t, best = crossing_combine(rows, torch.tensor([len(b_enc)]), params.h,
-                                  torch.tensor(forced))
-    return int(j[0]), int(t[0]), float(best[0])
+    """Best crossing cell (j, t) on row ``i_mid`` of an optimal path: the
+    one task's ``batched_crossings``. Returns (j, t, total_score)."""
+    return batched_crossings([(a_enc, b_enc, i_mid, start_type, end_type)],
+                             params, device, lastrow_fn)[0]
 
 
 def balanced_partition(a, b, p, params=ScoringParams(), start_type=-1,
@@ -100,9 +242,9 @@ def balanced_partition(a, b, p, params=ScoringParams(), start_type=-1,
     The first point is (0, 0, start_type) and the last (m, n, -end_type),
     so segments consume them as the reference's optimal_alignment does
     (start = point.t, end = -next_point.t; main_alignment.cpp:250-251).
-    The bisection runs level by level: with ``crossings_fn``
-    (``batched_crossings``) each level is one batched device fill,
-    otherwise ``crossing_on_row`` runs task by task with ``lastrow_fn``.
+    The bisection runs level by level, each level one call of
+    ``crossings_fn``, by default ``batched_crossings`` with ``lastrow_fn``
+    (K6's ``long_lastrow`` on ``device`` if None).
     The points lie on an optimal path that ends in the table the free end
     picks (``bisect``)."""
     return bisect(a, b, p, params, start_type, end_type, crossings_fn,
@@ -122,11 +264,9 @@ def bisect(a, b, p, params=ScoringParams(), start_type=-1, end_type=-1,
     the path then ends in T2 or T3."""
     a_enc, b_enc = _enc(a), _enc(b)
     m, n = a_enc.shape[0], b_enc.shape[0]
-    if crossings_fn is None:
-        def crossings_fn(tasks):
-            return [crossing_on_row(sa, sb, im, params, st, en, device,
-                                    lastrow_fn)
-                    for (sa, sb, im, st, en) in tasks]
+    crossings_fn = crossings_fn or functools.partial(
+        batched_crossings, params=params, device=device,
+        lastrow_fn=lastrow_fn or functools.partial(_k6_lastrow, device=device))
 
     points = {0: (0, 0, start_type), p: (m, n, -end_type)}
     end, pick_end = end_type, end_type == -1
@@ -186,12 +326,11 @@ class PartitionedAligner:
     main_alignment_function with the partition layer enabled
     (main_alignment.cpp:353-410 + partial.cpp).
 
-    ``fill_backend`` picks the crossing search: "auto" and "longrow" run
-    the level-batched ``batched_crossings``; "rowscan" runs the serial
-    ``crossing_on_row`` through the K6 last row (the same points);
-    "sharded" runs the serial ``crossing_on_row`` through
-    ``longseq_lastrow`` over ``mesh`` (default: every card of ``device``;
-    the kernel K8 on CUDA), as the JAX package does.
+    ``fill_backend`` picks where ``batched_crossings`` takes a level's
+    last rows (the same points on each): "auto" and "longrow" one K6
+    launch; "rowscan" K6's ``long_lastrow`` job by job; "sharded"
+    ``longseq_lastrow`` job by job over ``mesh`` (default: every card of
+    ``device``; the kernel K8 on CUDA), as the JAX package does.
     ``backend`` is the segment solves' ``BatchAligner`` backend (its
     values and routes; the crossing search does not depend on it).
     ``long_threshold`` is the JAX package's grid size (cells) past which
@@ -204,8 +343,8 @@ class PartitionedAligner:
     search, the segment solves and the stitch (``PHASES``, each ends with
     its results on the host), and ``COUNTERS``: the bisection levels that
     filled, the cells their fills cover (forward and reverse), the K6
-    launches (``crossing_launches``: one a level of the level-batched
-    search) and the jobs they fill (``strip_jobs``), and the segments'
+    launches (``crossing_launches``: one a level, or one a job on
+    "rowscan") and the jobs they fill (``strip_jobs``), and the segments'
     cells. Under a ``torch.profiler`` each phase is the range
     ``seqalign.<phase>``, ``align_batch``'s own ranges inside
     ``seqalign.segments``.
@@ -240,16 +379,14 @@ class PartitionedAligner:
         self.last_phases = dict(_ZEROS)
 
     def _crossings_fn(self):
-        if self.fill_backend in ("rowscan", "sharded"):
-            return None
+        """The level function of ``fill_backend``."""
+        lastrow_fn = {
+            "rowscan": functools.partial(_k6_lastrow, device=self.device),
+            "sharded": functools.partial(longseq_lastrow, mesh=self.mesh,
+                                         device=self.device),
+        }.get(self.fill_backend)
         return functools.partial(batched_crossings, params=self.params,
-                                 device=self.device)
-
-    def _lastrow_fn(self):
-        if self.fill_backend != "sharded":
-            return None
-        return functools.partial(longseq_lastrow, mesh=self.mesh,
-                                 device=self.device)
+                                 device=self.device, lastrow_fn=lastrow_fn)
 
     def _pick_p(self, m, n):
         """Segment count: explicit, or the smallest power of two whose
@@ -279,8 +416,7 @@ class PartitionedAligner:
     def _bisect(self, a_enc, b_enc, end_type=-1):
         return bisect(a_enc, b_enc, self._pick_p(len(a_enc), len(b_enc)),
                       self.params, end_type=end_type,
-                      crossings_fn=self._crossings_fn(), device=self.device,
-                      lastrow_fn=self._lastrow_fn())
+                      crossings_fn=self._crossings_fn(), device=self.device)
 
     def align(self, a, b) -> AlignmentResult:
         timer = PhaseTimer(_ZEROS, call=next(_CALLS))

@@ -1,5 +1,6 @@
-"""Port K6 long fill and K7 last row (plain PyTorch), the crossing combine
-and ``batched_crossings`` == the JAX package's.
+"""Port K6 long fill and K7 last row (plain PyTorch), and the crossing
+combine and ``batched_crossings`` of ``parallel/partition.py`` == the JAX
+package's.
 
 Inputs come from ``np.random.default_rng(seed)`` and go through both
 packages as numpy arrays; the Pallas kernels run in interpret mode, as
@@ -23,6 +24,7 @@ from cse305_parallel_sequence_alignment_torch.core import (
     ScoringParams,
 )
 from cse305_parallel_sequence_alignment_torch.ops import longrow, longstair
+from cse305_parallel_sequence_alignment_torch.parallel import partition
 from cse305_parallel_sequence_alignment_torch.utils import observability
 from cse305_parallel_sequence_alignment_tpu.ops import (
     pallas_longrow as jax_longrow,
@@ -101,7 +103,7 @@ def test_long_lastrow_matches_jax():
             assert np.array_equal(got, w), (m, n, st)
             jobs.append((x, y, st))
             want.append(w)
-    rows = longrow.long_fill(*longrow._job_bucket(jobs, "cpu"),
+    rows = longrow.long_fill(*longrow.job_bucket(jobs, "cpu"),
                              ScoringParams(), want_row=True).numpy()
     for k, w in enumerate(want):
         assert np.array_equal(rows[k, :, : w.shape[1]], w), jobs[k][2]
@@ -169,8 +171,8 @@ def test_combine_rows_ties_match_jax():
     n_vec = np.array([39, 20, 0, 7, 33], np.int32)
     jw, tw, bw = (np.asarray(x) for x in jax_longrow._combine_rows(
         jnp.asarray(rows), jnp.asarray(n_vec), C=C, h=2.0))
-    jp, tp, bp = longrow.combine_rows(torch.from_numpy(rows),
-                                      torch.from_numpy(n_vec).long(), 2.0)
+    jp, tp, bp = partition.combine_rows(torch.from_numpy(rows),
+                                        torch.from_numpy(n_vec).long(), 2.0)
     assert np.array_equal(jp.numpy(), jw) and np.array_equal(tp.numpy(), tw)
     assert np.array_equal(bp.numpy(), bw)
 
@@ -200,7 +202,7 @@ def test_batched_crossings_match_jax(level):
                   for q in range(9)]
     tasks = _tasks(rng, shapes)
     want = jax_longrow.batched_crossings(tasks, chunk_cols=128, rc=16)
-    got = longrow.batched_crossings(tasks, ScoringParams(), device="cpu")
+    got = partition.batched_crossings(tasks, ScoringParams(), device="cpu")
     assert got == want
     for task, w in zip(tasks, want):
         a, b, i_mid, st, en = task
@@ -216,8 +218,8 @@ def test_batched_crossings_stair_branch_matches_jax():
     tasks = _tasks(rng, [(60, 90, -1, -1), (45, 260, 1, 2)])
     want = jax_longrow.batched_crossings(tasks, stair_threshold=0)
     with observability.PhaseTimer() as timer:
-        got = longrow.batched_crossings(tasks, ScoringParams(),
-                                        device="cpu")
+        got = partition.batched_crossings(tasks, ScoringParams(),
+                                          device="cpu")
     assert got == want
     assert timer.totals["crossing_launches"] == 1
     assert timer.totals["strip_jobs"] == 4
@@ -287,8 +289,8 @@ def test_a_level_is_one_launch(B):
               for q in range(max(1, B // 2))]
     tasks = _tasks(rng, shapes)
     with observability.PhaseTimer() as timer:
-        got = longrow.batched_crossings(tasks, ScoringParams(),
-                                        device="cpu")
+        got = partition.batched_crossings(tasks, ScoringParams(),
+                                          device="cpu")
     assert timer.totals["crossing_launches"] == 1
     assert timer.totals["strip_jobs"] == 2 * len(tasks)
     assert got == jax_longrow.batched_crossings(tasks, chunk_cols=128, rc=16)

@@ -129,7 +129,7 @@ def test_partitioned_aligner_medium_grid(fill_backend):
     same_result(got, want)
     assert list(al.last_phases) == list(partition.PHASES
                                         + partition.COUNTERS)
-    # K6 launches: one a level, or one a job of each task
+    # K6 launches: one a level, or one a unique job of the level
     assert all(v > 0 for v in al.last_phases.values())
     assert al.last_phases["crossing_levels"] == 3
     assert al.last_phases["crossing_launches"] == (

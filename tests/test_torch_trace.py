@@ -32,7 +32,7 @@ from cse305_parallel_sequence_alignment_torch.core import ScoringParams
 from cse305_parallel_sequence_alignment_torch.models.batch import (
     BatchAligner,
 )
-from cse305_parallel_sequence_alignment_torch.ops import longrow, rowcb
+from cse305_parallel_sequence_alignment_torch.ops import rowcb
 from cse305_parallel_sequence_alignment_torch.parallel import partition
 from cse305_parallel_sequence_alignment_torch.parallel.batch_shard import (
     ShardedBatchAligner,
@@ -228,8 +228,8 @@ def test_partition_counts_its_fills(p):
 
     def record(level):
         tasks.append(len(level))
-        return longrow.batched_crossings(level, ScoringParams(),
-                                         device="cpu")
+        return partition.batched_crossings(level, ScoringParams(),
+                                           device="cpu")
     with observability.PhaseTimer() as timer:
         partition.balanced_partition(a, b, p, crossings_fn=record,
                                      device="cpu")
